@@ -1,15 +1,11 @@
 """Demo bootstrap: make trips_tpu importable when running from the repo and
-default to the CPU backend (set TRIPS_TPU_DEMO_TPU=1 to run on TPU)."""
+turn on the persistent compile cache. Demos run on JAX's default backend
+(the GPU where there is one; JAX_PLATFORMS=cpu selects the CPU)."""
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("TRIPS_TPU_DEMO_TPU") != "1":
-    os.environ.setdefault("JAX_PLATFORMS_FORCE", "cpu")
-    import jax
+from trips_tpu.config import enable_compile_cache  # noqa: E402
 
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except Exception:
-        pass
+enable_compile_cache()

@@ -60,9 +60,9 @@ def main():
             data_set="simulation", new_shape=(args.nx, args.nx), nt=args.nt
         )
 
-    # the champion TPU format for the full block system: frame-varying
-    # banded pack with vmapped kernels (falls back to ELL when per-frame
-    # angle sets are unknown, e.g. downloaded datasets)
+    # frame-varying banded pack with vmapped applies for the full block
+    # system (ELL when per-frame angle sets are unknown, e.g. downloaded
+    # datasets)
     if angles_list is not None:
         from trips_tpu.sparse import DynamicBandedOperator
 

@@ -1,15 +1,15 @@
-"""Fully-fused TPU path demo: the whole solve — Krylov recurrences,
+"""Fully-fused device path demo: the whole solve — Krylov recurrences,
 regularization-parameter selection (gcv / dp / l_curve), projected solves,
 basis growth — is ONE jitted device program per solver, with zero host
-round-trips per iteration. This is the path that makes TPU latency
-irrelevant: the host dispatches one program and fetches one scalar.
+round-trips per iteration: the host dispatches one program and fetches
+the result.
 
 Beyond the reference's surface (the reference hosts every iteration's
 k x k work on the CPU); numerics match the host-parity solvers to
 roundoff (tests/test_fused.py).
 
-Run: python demos/demo_fused_tpu.py [--config deblur1d|tomo] [--iters 15]
-     TRIPS_TPU_DEMO_TPU=1 python demos/demo_fused_tpu.py --config tomo
+Run: python demos/demo_fused.py [--config deblur1d|tomo] [--iters 15]
+(on the default JAX backend: the GPU where there is one)
 """
 import argparse
 import time
@@ -49,8 +49,8 @@ def build_tomo(nx, views):
     e = np.random.randn(b_true.size)
     sig = 0.01 * np.linalg.norm(b_true) / np.linalg.norm(e)
     b = (b_true + sig * e).astype(np.float32)
-    # the Ta-bucketed banded pack: exact Siddon matrix, the measured
-    # champion Pallas path on TPU (BENCH r4: 10.28 Gnnz/s bf16 fused A^T A)
+    # the Ta-bucketed banded pack of the Siddon matrix, bf16 storage
+    # (quantized class)
     op = BucketedBandedProjector.from_scipy_fan(A, nx, views, n_groups=32,
                                                 n_buckets=3,
                                                 dtype=jnp.bfloat16)
@@ -91,7 +91,7 @@ def main():
         x, lams, _ = fused_gks(A, bj, L, projection_dim=3,
                                n_iter=args.iters, regparam_mode=mode,
                                delta=delta)
-        float(jnp.linalg.norm(x))
+        x.block_until_ready()
         t_run = time.perf_counter() - t0
         print(f"fused_gks[{mode:8s}]  rel_err={relerr(x, x_true):.4f}  "
               f"lam={float(lams[-1]):.3e}  compile={t_compile:.1f}s  "
@@ -111,18 +111,17 @@ def main():
     print(f"fused_hyb_lsqr[gcv] rel_err={relerr(x, x_true):.4f}  "
           f"lam={float(lams[-1]):.3e}")
 
-    # champion TPU path (BASELINE.md r3): CG on the normal equations with
-    # the fused A^T A kernel — the stored band streams from HBM once per
-    # iteration instead of once per projection
+    # CG on the normal equations: one normal_matvec per iteration (the
+    # bucketed pack applies forward and adjoint bucket by bucket)
     from trips_tpu.krylov import cgls, cgls_normal
 
     x0 = jnp.zeros(A.shape[1], jnp.float32)
     for name, fn in (("cgls", cgls), ("cgls_normal", cgls_normal)):
         xx, _ = fn(A, bj, x0, max(args.iters, 20), 0.0)
-        float(jnp.linalg.norm(xx))  # compile
+        xx.block_until_ready()  # compile
         t0 = time.perf_counter()
         xx, _ = fn(A, bj, x0, max(args.iters, 20), 0.0)
-        float(jnp.linalg.norm(xx))
+        xx.block_until_ready()
         print(f"{name:19s} rel_err={relerr(xx, x_true):.4f}  "
               f"run={1e3 * (time.perf_counter() - t0):.0f}ms")
 

@@ -12,7 +12,7 @@ What it shows (r4 features):
   uninterrupted iterates bit-for-bit (solvers/checkpointed.py).
 
 Run: python demos/demo_fused_dynamic.py [--nx 32 --nt 6 --views 12]
-(TPU: TRIPS_TPU_DEMO_TPU=1; sized for STEMPO-scale frames there.)
+(on the default JAX backend: the GPU where there is one.)
 """
 import argparse
 import os

@@ -7,7 +7,7 @@ least-squares problem and running plain CGLS on it,
 
 with x0 = A^T b, lam = 0.01, 50 iterations, tol 1e-3 (notebook cells 3-8).
 
-The TPU-native form keeps both blocks matrix-free: ``VStackOperator``
+This form keeps both blocks matrix-free: ``VStackOperator``
 concatenates the forward blur and the scaled 2D first-derivative operator,
 and the whole CGLS recurrence runs as one fused device loop.
 

@@ -1,9 +1,8 @@
-"""Shear-packed banded projector: exact repack, XLA oracle, Pallas kernel.
+"""Shear-packed banded projector: exact repack and XLA applies.
 
 The pack must be *exact* — every nnz of the Siddon fan matrix keeps its
 value and position (``to_scipy`` reconstructs the matrix bit-for-bit) — and
-the Pallas kernel (run here with ``interpret=True``; VERDICT r1 item 4)
-must match the XLA gather apply, which itself must match scipy.
+the gather/scatter applies must match scipy.
 """
 import jax
 import jax.numpy as jnp
@@ -12,16 +11,13 @@ import pytest
 
 from trips_tpu.problems.projector import fan_beam_matrix
 from trips_tpu.sparse.banded import BandedProjector
-from trips_tpu.sparse.pallas_banded_kernel import banded_apply_pallas
 
 
 @pytest.fixture(autouse=True)
 def _clear_caches_each_test():
     """XLA CPU segfaults inside backend_compile_and_load once too many
-    compiled executables accumulate in one process (CLAUDE.md; the
-    per-module clear in conftest stopped sufficing when this module's
-    interpret-mode tests grew in r5 — reproduced mid-module). This module
-    is the heaviest compile user: clear per test."""
+    compiled executables accumulate in one process (CLAUDE.md). This
+    module is a heavy compile user: clear per test."""
     yield
     jax.clear_caches()
 
@@ -53,47 +49,35 @@ def test_xla_matvec_matches_scipy(packed, rng):
     x = rng.standard_normal(op.shape[1]).astype(np.float32)
     y = rng.standard_normal(op.shape[0]).astype(np.float32)
     np.testing.assert_allclose(
-        np.asarray(op.matvec_xla(jnp.asarray(x))), A @ x, rtol=2e-6,
+        np.asarray(op.matvec(jnp.asarray(x))), A @ x, rtol=2e-6,
         atol=1e-6)
     np.testing.assert_allclose(
-        np.asarray(op.rmatvec_xla(jnp.asarray(y))), A.T @ y, rtol=2e-6,
+        np.asarray(op.rmatvec(jnp.asarray(y))), A.T @ y, rtol=2e-6,
         atol=1e-6)
-
-
-def test_pallas_interpret_matches_xla(packed, rng):
-    nx, views, A, op = packed
-    x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    y = jnp.asarray(rng.standard_normal(op.shape[0]).astype(np.float32))
-    # lane-padded contraction (n_pad=128 for a 32 grid) reorders the f32
-    # accumulation vs the gather-einsum oracle: last-ulp level differences
-    np.testing.assert_allclose(
-        np.asarray(banded_apply_pallas(op, x, False, interpret=True)),
-        np.asarray(op.matvec_xla(x)), rtol=2e-5, atol=3e-6)
-    np.testing.assert_allclose(
-        np.asarray(banded_apply_pallas(op, y, True, interpret=True)),
-        np.asarray(op.rmatvec_xla(y)), rtol=2e-5, atol=3e-6)
 
 
 def test_pallas_adjointness(packed, rng):
-    _, _, _, op = packed
+    """<Ax, y> == <x, A^T y> through the gather forward and scatter-add
+    adjoint, and both sides match scipy's."""
+    _, _, A, op = packed
     x = rng.standard_normal(op.shape[1]).astype(np.float32)
     y = rng.standard_normal(op.shape[0]).astype(np.float32)
-    Ax = np.asarray(banded_apply_pallas(op, jnp.asarray(x), False,
-                                        interpret=True))
-    Aty = np.asarray(banded_apply_pallas(op, jnp.asarray(y), True,
-                                         interpret=True))
+    Ax = np.asarray(op.matvec(jnp.asarray(x)))
+    Aty = np.asarray(op.rmatvec(jnp.asarray(y)))
     np.testing.assert_allclose(float(Ax @ y), float(x @ Aty), rtol=1e-5)
+    ref = float((A @ x.astype(np.float64)) @ y)
+    np.testing.assert_allclose(float(Ax @ y), ref, rtol=1e-5)
 
 
 def test_bf16_storage_close(packed, rng):
-    """bf16 weight storage: the Pallas apply tracks the exact one to the
-    bf16 rounding budget (~2^-8 relative per factor)."""
+    """bf16 weight storage: the apply tracks the exact one to the bf16
+    rounding budget (~2^-8 relative per factor)."""
     nx, views, A, op = packed
     op16 = BandedProjector.from_scipy_fan(
         A, nx, views, n_groups=8, dtype=jnp.bfloat16)
     x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    exact = np.asarray(banded_apply_pallas(op, x, False, interpret=True))
-    approx = np.asarray(banded_apply_pallas(op16, x, False, interpret=True))
+    exact = np.asarray(op.matvec(x))
+    approx = np.asarray(op16.matvec(x))
     rel = np.linalg.norm(approx - exact) / np.linalg.norm(exact)
     assert rel < 2e-2, rel
 
@@ -112,36 +96,22 @@ def test_nonsquare_angle_split():
     x = np.random.default_rng(0).standard_normal(op.shape[1]).astype(
         np.float32)
     np.testing.assert_allclose(
-        np.asarray(op.matvec_xla(jnp.asarray(x))), A @ x, rtol=2e-6,
+        np.asarray(op.matvec(jnp.asarray(x))), A @ x, rtol=2e-6,
         atol=1e-6)
 
 
-def test_ata_kernel_interpret_matches_composed(packed, rng):
-    """Fused A^T A kernel (single weight stream per normal apply) matches
-    the composed rmatvec(matvec(x)) oracle and scipy A.T @ (A @ x)."""
-    from trips_tpu.sparse.pallas_banded_kernel import (
-        banded_normal_apply_pallas)
-
-    nx, views, A, op = packed
-    x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    got = np.asarray(banded_normal_apply_pallas(op, x, interpret=True))
-    np.testing.assert_allclose(
-        got, np.asarray(op.rmatvec_xla(op.matvec_xla(x))),
-        rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(got, A.T @ (A @ np.asarray(x)),
-                               rtol=2e-5, atol=1e-5)
-
-
 def test_ata_kernel_symmetry(packed, rng):
-    """A^T A is symmetric PSD: <N x, y> == <x, N y> and <N x, x> >= 0."""
-    from trips_tpu.sparse.pallas_banded_kernel import (
-        banded_normal_apply_pallas)
+    """A^T A is symmetric PSD: <N x, y> == <x, N y> and <N x, x> >= 0,
+    for the bucketed pack's ``normal_matvec``."""
+    from trips_tpu.sparse.banded_buckets import BucketedBandedProjector
 
-    _, _, _, op = packed
+    nx, views, A, _ = packed
+    op = BucketedBandedProjector.from_scipy_fan(A, nx, views, n_groups=8,
+                                                n_buckets=2)
     x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
     y = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    Nx = np.asarray(banded_normal_apply_pallas(op, x, interpret=True))
-    Ny = np.asarray(banded_normal_apply_pallas(op, y, interpret=True))
+    Nx = np.asarray(op.normal_matvec(x))
+    Ny = np.asarray(op.normal_matvec(y))
     lhs = float(Nx @ np.asarray(y))
     rhs = float(np.asarray(x) @ Ny)
     assert abs(lhs - rhs) < 1e-3 * max(1.0, abs(lhs))
@@ -168,28 +138,6 @@ def test_cgls_normal_matches_cgls(packed):
     x_fix, _ = cgls_normal_fixed(op, b, x0, 20)
     np.testing.assert_allclose(np.asarray(x_fix), np.asarray(x_nrm),
                                rtol=2e-4, atol=2e-4)
-
-
-def test_batched_groups_variant_matches_loop(packed, rng):
-    """The G-batched dot_general formulation of all three kernels (fwd,
-    adj, fused A^T A) is arithmetically identical to the per-group loop."""
-    from trips_tpu.sparse.pallas_banded_kernel import (
-        banded_apply_pallas, banded_normal_apply_pallas)
-
-    _, _, A, op = packed
-    x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    y = jnp.asarray(rng.standard_normal(op.shape[0]).astype(np.float32))
-    for v, transpose in ((x, False), (y, True)):
-        a = np.asarray(banded_apply_pallas(op, v, transpose,
-                                           interpret=True, batched=False))
-        b = np.asarray(banded_apply_pallas(op, v, transpose,
-                                           interpret=True, batched=True))
-        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
-    a = np.asarray(banded_normal_apply_pallas(op, x, interpret=True,
-                                              batched=False))
-    b = np.asarray(banded_normal_apply_pallas(op, x, interpret=True,
-                                              batched=True))
-    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
 
 
 def test_banded_dynamic_block_diag(packed, rng):
@@ -259,39 +207,34 @@ def test_dynamic_banded_frame_varying(rng):
 
 
 def test_nonaligned_grid_lane_padding(rng):
-    """Grids whose side is not a multiple of 128 pack into a lane-aligned
-    n_pad roll space (ROADMAP r3 item 3: STEMPO-real's 560-wide frames
-    previously fell back to the XLA gather apply on TPU). The padded pack
-    stays exact: to_scipy reconstructs bit-for-bit, all applies match
-    scipy, and the Pallas kernels (interpret) agree."""
+    """Grids whose side is not a multiple of 128 pack into an n_pad roll
+    space padded to a multiple of 128. The padded pack stays exact:
+    to_scipy reconstructs bit-for-bit, and the flat and bucketed applies
+    match scipy."""
     from trips_tpu.krylov import cgls_normal
-    from trips_tpu.sparse.pallas_banded_kernel import (
-        banded_apply_pallas, banded_normal_apply_pallas, pallas_supported)
+    from trips_tpu.sparse.banded_buckets import BucketedBandedProjector
 
     nx, views = 40, 10  # n_pad = 128
     A = fan_beam_matrix(nx, views=views).astype(np.float32)
     op = BandedProjector.from_scipy_fan(A, nx, views, n_groups=8)
     assert op.n_pad == 128
-    assert pallas_supported(op)
+    buck = BucketedBandedProjector.from_scipy_fan(A, nx, views, n_groups=8,
+                                                  n_buckets=2)
+    assert buck.n_pad == 128
     M = op.to_scipy()
     assert (M != A.astype(np.float64)).nnz == 0
     x = rng.standard_normal(op.shape[1]).astype(np.float32)
     y = rng.standard_normal(op.shape[0]).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(op.matvec_xla(jnp.asarray(x))),
+    np.testing.assert_allclose(np.asarray(op.matvec(jnp.asarray(x))),
                                A @ x, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(op.rmatvec_xla(jnp.asarray(y))),
+    np.testing.assert_allclose(np.asarray(op.rmatvec(jnp.asarray(y))),
+                               A.T @ y, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(buck.matvec(jnp.asarray(x))),
+                               A @ x, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(buck.rmatvec(jnp.asarray(y))),
                                A.T @ y, rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(
-        np.asarray(banded_apply_pallas(op, jnp.asarray(x), False,
-                                       interpret=True)),
-        A @ x, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(banded_apply_pallas(op, jnp.asarray(y), True,
-                                       interpret=True)),
-        A.T @ y, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(banded_normal_apply_pallas(op, jnp.asarray(x),
-                                              interpret=True)),
+        np.asarray(buck.normal_matvec(jnp.asarray(x))),
         A.T @ (A @ x), rtol=2e-4, atol=2e-4)
     # bad n_groups for the padded grid raises with guidance
     with pytest.raises(ValueError, match="divisors"):
@@ -304,7 +247,7 @@ def test_nonaligned_grid_lane_padding(rng):
 
 def test_native_pack_matches_numpy():
     """Native C++ pack_angle/scatter_fill == the NumPy pack bit-for-bit
-    (VERDICT r3 item 8): same shears, predictors, tap indices and slab
+   : same shears, predictors, tap indices and slab
     values (incl. the RNE f32->bf16 conversion) for both drive groups."""
     import trips_tpu.native as nat
     from trips_tpu.problems.projector import fan_beam_matrix
@@ -386,26 +329,16 @@ def test_bucketed_dynamic_banded_matches_plain(rng):
 
 
 def _bucketed_ata_interpret(op, x):
-    """Replicate BucketedBandedProjector.normal_matvec on the Pallas path
-    with interpret=True (the op methods gate Pallas on a real TPU)."""
-    from trips_tpu.sparse.pallas_banded_kernel import _ata_call
-
-    n, npd = op.nx, op.n_pad
-    X = op._embed(jnp.asarray(x))
-    img = jnp.zeros((npd, npd), jnp.float32)
-    for stack, aidx, isc in zip(op.stacks, op.aidxs, op.is_cols):
-        W, S, P, sc = op._parts(stack)
-        Xg = X.T if isc else X
-        c = _ata_call(Xg, W, S, P, op.n_groups, scales=sc, ap=op.ap,
-                      interpret=True)
-        img = img + (c.T if isc else c)
-    return np.asarray(img[:n, :n].reshape(-1))
+    """A^T A x for a bucketed pack from its own forward and adjoint
+    applies (the composed oracle of ``normal_matvec``)."""
+    xj = jnp.asarray(x)
+    return np.asarray(op.rmatvec(op.matvec(xj)))
 
 
 def test_int8_bucketed_storage(rng):
-    """int8 weight storage (r5): per-angle absmax scales, dequantized in
-    VMEM. The XLA path, the Pallas interpret path, and the to_scipy
-    reconstruction must agree exactly with each other and track the f32
+    """int8 weight storage: per-angle absmax scales, dequantized at apply
+    time. The fused normal apply, the composed forward/adjoint, and the
+    to_scipy reconstruction must agree with each other and track the f32
     matrix within the int8 rounding budget."""
     from trips_tpu.sparse.banded_buckets import BucketedBandedProjector
 
@@ -421,12 +354,10 @@ def test_int8_bucketed_storage(rng):
     got = np.asarray(op8.normal_matvec(jnp.asarray(x)))
     ref = (M8.T @ (M8 @ x)).astype(np.float32)
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
-    # Pallas interpret path: the kernel's selection matmul runs the bf16
-    # path for every non-f32 storage (identical to the bf16 class), so it
-    # tracks the f32-dequant XLA oracle within the bf16 rounding budget
+    # composed forward/adjoint: same dequantized weights, f32 roundoff only
     kern = _bucketed_ata_interpret(op8, x)
     rel_k = np.linalg.norm(kern - got) / np.linalg.norm(got)
-    assert rel_k < 5e-3, rel_k
+    assert rel_k < 1e-5, rel_k
     # quantization error vs exact matrix stays in the quantized-class
     # budget (<1% of the result norm)
     exact = A.T @ (A @ x)
@@ -438,49 +369,3 @@ def test_int8_bucketed_storage(rng):
     w8 = sum(st[0].size * st[0].dtype.itemsize for st in op8.stacks)
     w16 = sum(st[0].size * st[0].dtype.itemsize for st in op16.stacks)
     assert w8 * 2 == w16
-
-
-def test_angle_pair_pack_and_kernel(rng):
-    """ap=2 (two angles per Pallas grid step): buckets pad to even angle
-    counts with zero-weight slabs; the pack stays exact and the interpret
-    kernel matches the ap=1 result."""
-    from trips_tpu.sparse.banded_buckets import BucketedBandedProjector
-
-    nx, views = 32, 12
-    A = fan_beam_matrix(nx, views=views).astype(np.float32)
-    op1 = BucketedBandedProjector.from_scipy_fan(
-        A, nx, views, n_groups=8, n_buckets=2)
-    op2 = BucketedBandedProjector.from_scipy_fan(
-        A, nx, views, n_groups=8, n_buckets=2, ap=2)
-    assert op2.ap == 2
-    assert all(st[0].shape[0] % 2 == 0 for st in op2.stacks)
-    M = op2.to_scipy()
-    assert (M != A.astype(np.float64)).nnz == 0
-    x = rng.standard_normal(op2.shape[1]).astype(np.float32)
-    y = rng.standard_normal(op2.shape[0]).astype(np.float32)
-    # XLA path (CPU): forward/adjoint vs scipy through the padded packs
-    np.testing.assert_allclose(np.asarray(op2.matvec(jnp.asarray(x))),
-                               A @ x, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(op2.rmatvec(jnp.asarray(y))),
-                               A.T @ y, rtol=2e-5, atol=1e-5)
-    # interpret kernel: ap=2 == ap=1
-    np.testing.assert_allclose(_bucketed_ata_interpret(op2, x),
-                               _bucketed_ata_interpret(op1, x),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_f32_stack_mode_bitwise(packed, rng, monkeypatch):
-    """The r5 M-stacked split3 selection is bitwise identical to the
-    sequential split3 (same per-row K contraction, same summation order)."""
-    from trips_tpu.sparse.pallas_banded_kernel import (
-        banded_normal_apply_pallas)
-
-    _, _, _, op = packed
-    x = jnp.asarray(rng.standard_normal(op.shape[1]).astype(np.float32))
-    monkeypatch.setenv("TRIPS_TPU_F32_SELECT", "stack")
-    got_stack = np.asarray(banded_normal_apply_pallas(op, x,
-                                                      interpret=True))
-    monkeypatch.setenv("TRIPS_TPU_F32_SELECT", "split3")
-    got_split = np.asarray(banded_normal_apply_pallas(op, x,
-                                                      interpret=True))
-    np.testing.assert_array_equal(got_stack, got_split)

@@ -1,4 +1,4 @@
-"""Checkpoint/resume for the fused device loops (VERDICT r3 item 5):
+"""Checkpoint/resume for the fused device loops:
 chunked execution surfaces the state pytree between identical chunk
 programs, so a killed run resumed from its checkpoint reproduces the
 uninterrupted final iterate bit-for-bit."""

@@ -1,4 +1,4 @@
-"""Fixture tests for the gated real-dataset loaders (VERDICT r1 item 5).
+"""Fixture tests for the gated real-dataset loaders.
 
 Each test writes a tiny synthetic file in the *exact* on-disk format of the
 real dataset — MATLAB v7.3 (HDF5) CSC with data/ir/jc for Emoji and
@@ -275,7 +275,7 @@ def test_saved_data_tomography_fixture(in_tmp):
 
 
 def test_emoji_fixture_full_scale(in_tmp):
-    """True Emoji shapes end-to-end (VERDICT r3 item 6): the v7.3 CSC at
+    """True Emoji shapes end-to-end: the v7.3 CSC at
     the real (214830, 540672) 30-angle layout (io.py:123-162 — 33 frames,
     217 detector bins x 30 angles/frame, 128x128 images), realistic nnz,
     loader -> per-frame blocks -> ELL reconstruction (5 CGLS iters)."""
@@ -339,7 +339,7 @@ def test_emoji_fixture_full_scale(in_tmp):
 
 
 def test_stempo_real_fixture_full_density(in_tmp):
-    """STEMPO-real layout at realistic density (VERDICT r3 item 6):
+    """STEMPO-real layout at realistic density:
     (12600, 78400) per-frame CSC with ~30 nnz/row through A_seqData.mat,
     8-frame block system reconstructed end-to-end (3 CGLS iters)."""
     import h5py

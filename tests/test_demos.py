@@ -1,8 +1,8 @@
-"""Demo smoke tests (VERDICT r4 item 10): every migration-surface script
+"""Demo smoke tests: every migration-surface script
 in demos/ runs end-to-end at a fast configuration in CI — regressions in
 the public API surface the demos exercise show up here, not at judge
-time. Each demo is a subprocess (they self-bootstrap onto the CPU
-backend); gated-data demos must degrade gracefully."""
+time. Each demo is a subprocess on the CPU backend (JAX_PLATFORMS=cpu);
+gated-data demos must degrade gracefully."""
 import os
 import subprocess
 import sys
@@ -18,7 +18,7 @@ FAST = {
                            "--nt", "4", "--iters", "5"],
     "demo_fused_dynamic.py": ["--nx", "16", "--nt", "4", "--views", "8",
                               "--n_iter", "4"],
-    "demo_fused_tpu.py": ["--config", "deblur1d", "--n", "80",
+    "demo_fused.py": ["--config", "deblur1d", "--n", "80",
                           "--iters", "6"],
     "demo_l_curve.py": ["--n", "24", "--views", "10", "--iters", "6"],
     "demo_small_scale_cgls.py": ["--n", "24", "--iters", "10"],
@@ -32,8 +32,7 @@ FAST = {
 
 @pytest.mark.parametrize("script", sorted(FAST))
 def test_demo_smoke(script):
-    env = dict(os.environ)
-    env.pop("TRIPS_TPU_DEMO_TPU", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "demos", script)]
         + FAST[script],

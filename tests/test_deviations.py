@@ -1,4 +1,4 @@
-"""Quantified deliberate deviations from the reference (VERDICT r1 item 9).
+"""Quantified deliberate deviations from the reference.
 
 Each documented divergence gets a test against a *literal* NumPy mirror of
 the reference's buggy code path, pinning the direction and magnitude of

@@ -76,8 +76,8 @@ def test_dp_device_unattainable(rng):
 
 
 def test_device_tsvd_tgsvd_selection_matches_host(rng):
-    """Device discrete truncation searches == host rules (VERDICT r3
-    item 7): gcv/dp x tsvd/tgsvd on full SVD/GSVD spectra."""
+    """Device discrete truncation searches == host rules:
+    gcv/dp x tsvd/tgsvd on full SVD/GSVD spectra."""
     from trips_tpu.regparam import (discrepancy_principle,
                                     generalized_crossvalidation)
     from trips_tpu.regparam.device import (dp_tgsvd_k, dp_tsvd_k,

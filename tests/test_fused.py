@@ -98,7 +98,7 @@ def test_fused_hybrid_lsqr_scalar():
     )
 
 
-# ---- on-device DP / L-curve in the fused solvers (VERDICT r1 item 6) ----
+# ---- on-device DP / L-curve in the fused solvers ----
 
 def problem_with_delta():
     op, A, x_true, b = problem()
@@ -197,8 +197,8 @@ def test_fused_hybrid_lsqr_lcurve_matches_host():
 
 
 def test_fused_f32_robustness():
-    """The fused on-device regparam rules are the TPU path, and TPU is
-    f32-only: the selected lam must not collapse (GCV cancellation in
+    """The fused on-device regparam rules are the device path, which runs
+    in f32: the selected lam must not collapse (GCV cancellation in
     t - trace), and DP must stay finite (Newton f' underflow), when the
     whole solve runs in float32. Regression for the f32 failures found in
     round 2: on this severely ill-posed config the solve-based GCV picked
@@ -244,9 +244,9 @@ def test_fused_f32_robustness():
     assert 1e-8 < lam64 < 1e2
     np.testing.assert_allclose(lam32, lam64, rtol=0.1)
 
-    # (b) end-to-end pure-f32 solve (subprocess: x64 off, as on TPU where
-    # f64 does not exist — the in-process x64 session would mix precisions
-    # in a way real TPU execution cannot): reconstruction must not blow up
+    # (b) end-to-end pure-f32 solve (subprocess on the CPU with x64 off,
+    # as the solvers run on the GPU — the in-process x64 session would mix
+    # precisions in a way an f32 run cannot): reconstruction must not blow up
     # (was rel_err ~11 / lam ~1.5e-7 with the solve-based GCV in f32)
     import os
     import subprocess
@@ -274,7 +274,7 @@ def test_fused_f32_robustness():
         "assert err < 0.5, err\n"
         "assert float(lams[-1]) > 1e-4, lams\n"
     )
-    env = dict(os.environ, JAX_PLATFORMS_FORCE="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", script], capture_output=True,
                        text=True, env=env, cwd=ROOT, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -303,10 +303,11 @@ def test_fused_hybrid_gmres_matches_host():
 
 def test_fused_f32_all_modes_all_solvers():
     """Pure-f32 subprocess coverage for every regparam mode across every
-    fused solver (VERDICT r2 item 10): the on-device L-curve and the
+    fused solver: the on-device L-curve and the
     hybrid rectangular DP are the newest scalar rules; all 16
     (solver x mode) combos must track their f64 trajectories when the
-    whole solve runs in float32 (as on TPU, where f64 does not exist).
+    whole solve runs in float32 (as on the GPU; the subprocesses stay on
+    the CPU backend).
 
     "Track" = selected lam within 2x (both zero allowed: hybrid-LSQR DP
     legitimately keeps lam 0 on this config) and reconstruction error
@@ -356,7 +357,7 @@ def test_fused_f32_all_modes_all_solvers():
     )
 
     ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORMS_FORCE="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
 
     def run_matrix(x64):
         src = matrix_src.format(
@@ -386,8 +387,8 @@ def test_fused_f32_all_modes_all_solvers():
 
 
 def test_fused_mmgks_dynamic_weight_modes():
-    """Fused isoTV/GS dynamic MMGKS matches the host solver (VERDICT r3
-    item 2): the reference's flagship dynamic modes (MMGKS.py:61-91) run
+    """Fused isoTV/GS dynamic MMGKS matches the host solver:
+    the reference's flagship dynamic modes (MMGKS.py:61-91) run
     entirely inside the fused device loop."""
     from trips_tpu.operators import CenteredSpaceTimeDerivative
     from trips_tpu.problems import generate_synthetic_dynamic
@@ -452,7 +453,7 @@ def test_fused_mmgks_dynamic_banded_operator():
 
 
 def test_fused_info_adapters_match_plain(rng):
-    """The (x, info) adapters (VERDICT r4 item 9) scan the SAME device
+    """The (x, info) adapters scan the SAME device
     bodies: final x and lambda history are identical to the plain fused
     solvers, and the info dict carries the reference keys
     (GKS.py:97-105)."""

@@ -1,5 +1,4 @@
-"""Offline numeric cross-check of the gelPhantom Cone2D -> fan mapping
-(VERDICT r2 item 6).
+"""Offline numeric cross-check of the gelPhantom Cone2D -> fan mapping.
 
 CIL itself is not in this image, so this test *reimplements* CIL's
 published geometry arithmetic independently — straight from the CIL source

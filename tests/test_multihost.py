@@ -5,16 +5,17 @@ Launches 2 OS processes that rendezvous through
 coordinator), each exposing 4 CPU devices, and form one 8-device global
 mesh via ``pod_mesh``. The worker (``tests/multihost_worker.py``)
 parity-asserts forward / psum'd normal / fused-CGLS / int8-bucketed
-champion applies against single-process oracles — so the
+applies against single-process oracles — so the
 process-spanning data path (global arrays from per-host replicas,
 cross-process shard_map psums over gloo, fused while_loop solvers on a
 multi-host mesh) is exercised for real, not simulated inside one
-process. On TPU pods the identical program rides ICI/DCN; only the
+process. The processes stay on the CPU backend (gloo collectives); on
+several GPU hosts the identical program rides NCCL, and only the
 collective transport differs.
 
 The reference (``/root/reference/trips``) is single-process NumPy and
 has no analog — this covers the distribution subsystem that is new in
-the TPU design.
+this design.
 """
 import os
 import socket

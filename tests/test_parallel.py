@@ -134,7 +134,7 @@ def test_pod_mesh_single_process():
     assert mesh.shape == {"time": 2, "rows": 4}
 
 
-# ---- sharded BSR: the multi-chip path on the fast format (VERDICT r1 #3) --
+# ---- sharded BSR: the multi-chip path on the fast format --
 
 def test_sharded_bsr_matches_scipy(rng, mesh8):
     from trips_tpu.parallel import ShardedBsrOperator
@@ -213,7 +213,7 @@ def test_sharded_dynamic_bsr_cgls_with_tv(rng, mesh24):
 
 
 def test_sharded_bsr_bf16_blocks(rng, mesh8):
-    """bf16 block storage on the sharded path (the TPU bandwidth format)."""
+    """bf16 block storage on the sharded path (the quantized class)."""
     from trips_tpu.parallel import ShardedBsrOperator
 
     A = sp.random(96, 128, density=0.15, format="csr",
@@ -357,7 +357,7 @@ def test_sharded_dynamic_banded(rng, mesh8):
 
 
 def test_sharded_banded_single_psum_per_apply(rng, mesh8):
-    """Pin the collective count (VERDICT r3 item 3): the merged
+    """Pin the collective count: the merged
     single-program applies issue exactly ONE psum per normal/adjoint apply
     (both drive groups summed locally first) and none in the forward."""
     from trips_tpu.parallel import ShardedBandedProjector
@@ -406,8 +406,7 @@ def test_sharded_dynamic_banded_single_psum_per_apply(rng):
 
 
 def test_sharded_bucketed_banded_projector(rng, mesh8):
-    """Angle-sharded Ta-bucketed pack (the r4 champion format on the mesh,
-    VERDICT r4 item 5): forward/adjoint/normal match scipy, and the
+    """Angle-sharded Ta-bucketed pack on the mesh: forward/adjoint/normal match scipy, and the
     single-psum-per-apply economy survives the bucketing (jaxpr pin)."""
     from trips_tpu.parallel import ShardedBucketedBandedProjector
     from trips_tpu.problems.projector import fan_beam_matrix
@@ -482,8 +481,7 @@ def test_sharded_bucketed_dynamic_banded(rng):
 def test_hlo_collective_audit(rng, mesh8):
     """The compiled-HLO collective audit (bench/hlo_audit.py) measures
     exactly one all-reduce of n_pad^2 f32 per adjoint/normal apply on the
-    sharded bucketed projector — the measured input of the ICI model
-    (VERDICT r4 item 3)."""
+    sharded bucketed projector."""
     from trips_tpu.bench.hlo_audit import audit_operator
     from trips_tpu.parallel import ShardedBucketedBandedProjector
     from trips_tpu.problems.projector import fan_beam_matrix
@@ -507,7 +505,7 @@ def test_hlo_collective_audit(rng, mesh8):
 
 
 def test_streamed_dynamic_matches_resident(rng):
-    """Out-of-core streamed dynamic operator (VERDICT r4 item 6): the
+    """Out-of-core streamed dynamic operator: the
     two-slot host->device pipeline reproduces the resident block-diag
     system exactly, and streamed CGLS matches the fused resident solve."""
     from trips_tpu.krylov import cgls_normal

@@ -162,8 +162,10 @@ def test_native_projector_matches_numpy():
 
 
 def test_device_operator_prefers_banded_with_geometry():
-    """With fan geometry metadata + f32, the device wrapper returns the
-    champion bucketed banded pack (exact matrix); BSR/ELL otherwise."""
+    """prefer='banded' with fan geometry metadata returns the bucketed
+    banded pack (exact matrix); without ``prefer`` the exact-class
+    default format is used."""
+    from trips_tpu.problems import tomography
     from trips_tpu.problems.tomography import device_sparse_operator
     from trips_tpu.sparse import BucketedBandedProjector, EllOperator
 
@@ -175,9 +177,11 @@ def test_device_operator_prefers_banded_with_geometry():
     assert isinstance(op, BucketedBandedProjector)
     d = abs(op.to_scipy() - A.astype(np.float64))
     assert (d.max() if d.nnz else 0.0) == 0.0
-    # platform default off-TPU stays ELL
+    # exact-class default, the same on every platform
     op2 = device_sparse_operator(A, nx=nx, angles=angles)
-    assert isinstance(op2, EllOperator)
+    assert type(op2).__name__ == {
+        "ell": "EllOperator", "bsr": "BsrOperator",
+        "banded": "BucketedBandedProjector"}[tomography.DEFAULT_FORMAT]
     # solver end-to-end through the banded wrapper
     from trips_tpu.solvers import GKS
     from trips_tpu.operators import FirstDerivative2D
@@ -197,9 +201,9 @@ def test_device_operator_prefers_banded_with_geometry():
 
 
 def test_device_sparse_operator_quantized_dtypes(rng):
-    """device_sparse_operator accepts the quantized-class dtypes (r5):
-    bf16 / int8 select the champion bucketed pack with the matching
-    storage, f32 stays exact."""
+    """device_sparse_operator accepts the quantized-class dtypes: bf16 /
+    int8 select the bucketed pack with the matching storage, f32 stays
+    exact."""
     import jax.numpy as jnp
 
     from trips_tpu.problems.projector import fan_beam_matrix

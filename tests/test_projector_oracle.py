@@ -1,4 +1,4 @@
-"""Analytic projector oracle (VERDICT r4 item 8).
+"""Analytic projector oracle.
 
 The discrete fan-/parallel-beam builders were previously validated only
 against their own NumPy/C++ twins. Closed-form ellipse line integrals

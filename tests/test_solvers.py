@@ -260,8 +260,8 @@ def test_hybrid_lsqr_parity_with_reference_mirror(deblur1d):
 
 def test_hybrid_lsqr_dp_stop_matvec_economy(deblur1d):
     """dp_stop factorizes in chunks and stops at the DP iteration
-    (reference Hybrid_LSQR.py:85-93 stops the factorization there too —
-    VERDICT r1 item 7): a stop at iteration k must cost O(k) matvecs, not
+    (reference Hybrid_LSQR.py:85-93 stops the factorization there too):
+    a stop at iteration k must cost O(k) matvecs, not
     O(n_iter). The solver accounts dispatched A/A^T applies in
     info['matvec_count'] (fused loops are opaque to Python counters)."""
     d = deblur1d
@@ -302,7 +302,7 @@ def test_hybrid_gmres_dp_stop_matvec_economy(deblur1d):
 
 def test_direct_dense_guard(deblur1d):
     """Direct solvers refuse to densify beyond DENSE_MAX_ELEMENTS
-    (VERDICT r2 item 7: Tikhonov GCV used to materialize np.eye(m) and
+    (Tikhonov GCV used to materialize np.eye(m) and
     densify A unconditionally; a 21720x65536 operator would be 11 GB)."""
     from trips_tpu.solvers.direct import DENSE_MAX_ELEMENTS
     d = deblur1d

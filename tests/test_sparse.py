@@ -156,7 +156,7 @@ def test_int8_blocks_quantized_apply(rng):
 
 
 def test_int8_todense_not_zero(rng):
-    """Regression (ADVICE r1, medium): todense()/to_scipy() on an
+    """Regression: todense()/to_scipy() on an
     int8-quantized BsrOperator must reconstruct the matrix, not an all-zero
     int8 cast. The computation dtype of a quantized operator is float32."""
     import jax.numpy as jnp
@@ -173,7 +173,7 @@ def test_int8_todense_not_zero(rng):
     assert op.stored_bytes > op.blocks.size
 
 
-# The per-block Pallas BSR kernel was retired (VERDICT r2 item 8): the XLA
+# The per-block Pallas BSR kernel was retired: the XLA
 # einsum + segment-sum apply is the BSR path (driver-recorded 2.15-2.35
 # Gnnz/s vs the kernel's 0.10 on tomo256x60); the banded Pallas kernel
 # owns the stored-matrix fast path.

@@ -1,21 +1,16 @@
-"""Collective audit of the compiled sharded programs (VERDICT r4 item 3).
+"""Collective audit of the compiled sharded programs.
 
-Wall-clock scaling on the simulated CPU mesh carries no information about
-ICI behavior — this environment has 2 host cores under 8 simulated
-devices, so any strong- OR weak-scaling wall-clock curve measures host
-oversubscription, not the collective schedule. What IS measurable here is
-the thing the analytic ICI model (``bench.scaling.predict_ici_efficiency``)
-actually needs as input: the **collective bytes and counts per apply in
-the compiled HLO** of the real-scale sharded programs.
+Wall-clock scaling on a simulated CPU mesh carries no information about
+interconnect behavior (the simulated devices share the host's cores).
+What a CPU mesh can show is the **collective bytes and counts per apply
+in the compiled HLO** of the real-scale sharded programs.
 
-``collective_stats`` lowers + compiles a function on the simulated mesh
-and parses the optimized (post-SPMD-partitioner) HLO for collective ops
-(all-reduce / all-gather / reduce-scatter / collective-permute /
-all-to-all), returning per-op counts and payload bytes. The audit runs on
-the same ``jax.sharding`` programs that would execute on a pod slice —
-the partitioner emits the same collective schedule for a CPU mesh as for
-a TPU mesh of the same shape, so the extracted psum payload is the
-measured model input, not an assumption.
+``collective_stats`` lowers + compiles a function on a mesh and parses
+the optimized (post-SPMD-partitioner) HLO for collective ops (all-reduce /
+all-gather / reduce-scatter / collective-permute / all-to-all), returning
+per-op counts and payload bytes. The partitioner emits the same collective
+schedule for any mesh of the same shape, so these counts do not depend on
+the platform.
 
 Distribution is a new subsystem (reference is single-process NumPy,
 SURVEY.md §2.10).
@@ -103,7 +98,7 @@ def collective_stats(fn, *args):
 
 def audit_operator(op, applies=("matvec", "rmatvec", "normal_matvec")):
     """Collective schedule of each apply of a sharded operator, plus the
-    stream-vs-collective ratio that the ICI efficiency claim rests on."""
+    ratio of stored-matrix bytes to collective bytes per apply."""
     import jax.numpy as jnp
 
     out = {}

@@ -1,22 +1,20 @@
-"""nnz/s scaling-efficiency harness (1 chip -> N chips / hosts).
+"""nnz/s scaling harness (1 device -> N devices).
 
-BASELINE target: >=80% nnz/s scaling efficiency at 2+ hosts. This harness
-runs the fused CGLS loop over the sharded operators on 1, 2, ..., N
+Runs the fused CGLS loop over the sharded operators on 1, 2, ..., N
 devices of whatever backend is available and reports the efficiency curve
-for BOTH distributed formats:
+for the distributed formats:
 
 - ``banded``: the angle-sharded banded projector
-  (``parallel/sharded_banded.py``) — the format the TPU perf path actually
-  recommends (single-chip champion, VERDICT r2 item 4);
-- ``bsr``: the row-sharded BSR block stream (``parallel/sharded_bsr.py``).
+  (``parallel/sharded_banded.py``);
+- ``bsr``: the row-sharded BSR block stream (``parallel/sharded_bsr.py``);
+- ``dynamic``: the (time x angles)-sharded dynamic banded operator.
 
-On the CI/dev CPU backend (simulated devices) the numbers are functional
-smoke only — XLA collectives over host-platform devices share one set of
-cores, so "efficiency" there validates plumbing, not ICI scaling; the
-emitted artifact is labeled accordingly. On a real pod slice every host
-runs this same entry point after ``parallel.init_multihost``.
+On the CPU backend (simulated devices) the numbers are functional smoke
+only — collectives over host-platform devices share one set of cores, so
+"efficiency" there validates plumbing, not scaling.
 
-Run ``python -m trips_tpu.bench.scaling [out.json]`` to write the artifact.
+Run ``python -m trips_tpu.bench.scaling [out.json]`` to write the artifact
+(sharding parity and the compiled-HLO collective schedule).
 """
 from __future__ import annotations
 
@@ -25,68 +23,6 @@ import sys
 import time
 
 import numpy as np
-
-
-# -- analytic ICI communication-cost model (VERDICT r3 item 3) ------------
-#
-# The merged sharded applies issue exactly ONE psum of one (n_pad^2, f32)
-# image per normal/adjoint apply (pinned by
-# tests/test_parallel.py::test_sharded_banded_single_psum_per_apply), and
-# the angle-sharded weight stream is embarrassingly parallel. Per-iteration
-# time on D chips is therefore modeled as
-#
-#   t(D) = t1 / D                      (compute+stream, perfectly sharded)
-#        + 2 * B_psum * (D-1)/D / BW_ici   (ring all-reduce payload)
-#        + L_coll                      (collective launch/latency floor)
-#
-# with B_psum = n_pad^2 * 4 bytes, BW_ici the per-chip ICI bandwidth and
-# L_coll a per-collective latency floor. v5e: 1600 Gbps ICI per chip (2-D
-# torus; ICI spans hosts within a pod slice, so >=2-host collectives ride
-# ICI, not DCN). t1 comes from the measured single-chip champion
-# (BENCH_r03: 9.47 Gnnz/s fused A^T A -> t1 = 2*nnz/9.47e9 for the
-# tomo256x60 config).
-
-V5E_ICI_BYTES_PER_S = 200e9  # 1600 Gbps per chip
-V5E_COLLECTIVE_LATENCY_S = 5e-6
-
-
-def predict_ici_efficiency(t1_s, psum_bytes, device_counts,
-                           ici_bw=V5E_ICI_BYTES_PER_S,
-                           latency_s=V5E_COLLECTIVE_LATENCY_S):
-    """Predicted nnz/s scaling efficiency of the single-psum banded apply.
-
-    Returns [{devices, t_compute_s, t_comm_s, predicted_efficiency}].
-    """
-    out = []
-    for d in device_counts:
-        t_comp = t1_s / d
-        t_comm = (2.0 * psum_bytes * (d - 1) / d / ici_bw
-                  + (latency_s if d > 1 else 0.0))
-        out.append({
-            "devices": int(d),
-            "t_compute_s": t_comp,
-            "t_comm_s": t_comm,
-            "predicted_efficiency": t1_s / d / (t_comp + t_comm),
-        })
-    return out
-
-
-def predicted_section(nnz=5_077_264, n_pad=256,
-                      champion_gnnzps=9.47,
-                      device_counts=(1, 2, 4, 8, 16, 32, 64),
-                      label="tomo256x60_bf16_g32_fused_ata"):
-    """Predicted-efficiency artifact block for a measured champion config."""
-    t1 = 2.0 * nnz / (champion_gnnzps * 1e9)
-    psum_bytes = n_pad * n_pad * 4
-    return {
-        "label": label,
-        "t1_per_iter_s": t1,
-        "psum_bytes_per_apply": psum_bytes,
-        "ici_bytes_per_s": V5E_ICI_BYTES_PER_S,
-        "collective_latency_s": V5E_COLLECTIVE_LATENCY_S,
-        "psums_per_normal_apply": 1,
-        "curve": predict_ici_efficiency(t1, psum_bytes, device_counts),
-    }
 
 
 def _measure(op, b, iters):
@@ -119,7 +55,6 @@ def run(nx=256, views=60, iters=50, device_counts=None, formats=("banded",
     devices = jax.devices()
     if device_counts is None:
         device_counts = [d for d in (1, 2, 4, 8, 16, 32) if d <= len(devices)]
-    on_tpu = devices[0].platform == "tpu"
 
     A = fan_beam_matrix(nx, views=views).astype(np.float32)
     b = (A @ np.random.default_rng(0).random(A.shape[1])).astype(np.float32)
@@ -139,13 +74,10 @@ def run(nx=256, views=60, iters=50, device_counts=None, formats=("banded",
                 nx=min(nx, 64), nt=nt, views=max(views // 4, 8),
                 noise_level=0.01, return_angles=True)
             dop = _sp.DynamicBandedOperator.from_frames(
-                AAd, nxd, al, n_groups=16,
-                dtype=jnp.bfloat16 if on_tpu else None)
+                AAd, nxd, al, n_groups=16)
             b_dyn = bd.astype(np.float32)
         if fmt == "banded":
-            bop = BandedProjector.from_scipy_fan(
-                A, nx, views, n_groups=16,
-                dtype=jnp.bfloat16 if on_tpu else None)
+            bop = BandedProjector.from_scipy_fan(A, nx, views, n_groups=16)
         for nd in device_counts:
             if fmt == "dynamic":
                 t_sh = 2 if (nd % 2 == 0 and dop.nt % 2 == 0) else 1
@@ -164,8 +96,7 @@ def run(nx=256, views=60, iters=50, device_counts=None, formats=("banded",
             else:
                 mesh = make_mesh({"rows": nd}, devices=devices[:nd])
                 sop = ShardedBsrOperator.from_scipy(
-                    A, mesh, block_shape=(32, 128),
-                    block_dtype=jnp.bfloat16 if on_tpu else None)
+                    A, mesh, block_shape=(32, 128))
             rate = _measure(sop, b, iters) * A.nnz
             results.append((nd, rate))
         base = results[0][1]
@@ -220,9 +151,8 @@ def functional_validation(device_counts=(1, 2, 4, 8), nx=32, views=16):
 def measured_collectives(n_devices=8, static_cfg=(256, 60),
                          dynamic_cfg=(560, 45, 2)):
     """Collective schedule of the real-scale sharded programs, extracted
-    from the compiled HLO (the measured input the ICI model needs;
-    VERDICT r4 item 3). Static: the flagship bench config on the bucketed
-    champion pack. Dynamic: STEMPO-real-scale parallel-beam frames on the
+    from the compiled HLO. Static: the flagship bench config on the
+    bucketed pack. Dynamic: STEMPO-real-scale parallel-beam frames on the
     bucketed (time x angles) stack."""
     import jax
 
@@ -269,64 +199,18 @@ def measured_collectives(n_devices=8, static_cfg=(256, 60),
 
 
 def main(out_path="SCALING.json", n_devices=None):
-    import os
-
     import jax
 
-    platform = jax.devices()[0].platform
+    devices = jax.devices()
     if n_devices is None:
-        n_devices = min(8, len(jax.devices()))
-    measured = measured_collectives(n_devices=n_devices)
-
-    # predicted curves with the MEASURED psum payload (not the assumed
-    # n_pad^2): champion single-chip rates from BENCH_r04
-    # (bf16 bucketed fused A^T A 10.79 Gnnz/s; dynamic 560-scale 6.5)
-    static_key = next(k for k in measured if k.startswith("static"))
-    dyn_key = next(k for k in measured if k.startswith("dynamic"))
-    curves = []
-    for key, gnnzps in ((static_key, 10.79), (dyn_key, 6.5)):
-        nnz = measured[key]["nnz"]
-        psum = measured[key]["audit"]["normal_matvec"]["total_bytes"]
-        t1 = 2.0 * nnz / (gnnzps * 1e9)
-        curve = predict_ici_efficiency(t1, psum, (1, 2, 4, 8, 16, 32, 64))
-        entry = {
-            "label": key + "_measured_psum",
-            "champion_gnnzps_single_chip": gnnzps,
-            "t1_per_iter_s": t1,
-            "psum_bytes_per_apply_measured_hlo": psum,
-            "ici_bytes_per_s": V5E_ICI_BYTES_PER_S,
-            "collective_latency_s": V5E_COLLECTIVE_LATENCY_S,
-            "curve": curve,
-        }
-        if any(c["predicted_efficiency"] < 0.8 for c in curve):
-            entry["note"] = (
-                "sub-0.8 points are strong-scaling saturation of this "
-                "fixed problem (per-chip work shrinks until the "
-                "collective latency floor dominates), not a communication "
-                "bound: the per-apply collective payload is <0.2% of the "
-                "weight stream. Production-scale problems (the dynamic "
-                "config; more angles/frames per chip) stay >=0.9.")
-        curves.append(entry)
-
+        n_devices = min(8, len(devices))
     artifact = {
-        "platform": f"{platform} x{len(jax.devices())}",
-        "host_cores": os.cpu_count(),
-        "method": (
-            "No wall-clock scaling numbers are committed from this "
-            "environment: the simulated mesh runs on fewer host cores "
-            "than devices, so wall-clock 'efficiency' measures host "
-            "oversubscription, not ICI (r4's strong-scaling smoke was "
-            "retired for exactly this reason). Instead: (1) parity of "
-            "the sharded programs at every device count, (2) collective "
-            "counts/bytes extracted from the compiled HLO of the "
-            "real-scale sharded programs - the SPMD partitioner emits "
-            "the same schedule for a TPU mesh of the same shape - "
-            "feeding (3) the analytic ICI model with measured psum "
-            "payloads."),
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
         "functional_parity": functional_validation(
             device_counts=(1, 2, 4, min(8, n_devices))),
-        "measured_collectives": measured,
-        "predicted": curves,
+        "measured_collectives": measured_collectives(n_devices=n_devices),
     }
     with open(out_path, "w") as f:
         json.dump(artifact, f, indent=1)

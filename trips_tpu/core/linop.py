@@ -320,7 +320,7 @@ register_op(BlockDiagOperator, ["ops"], ["shape"])
 class BatchedBlockDiagOperator(LinearOperator):
     """diag(B, B, ..., B) with T repeats of one shared operator B.
 
-    TPU-native replacement for per-frame Python loops: the T frames become a
+    Device replacement for per-frame Python loops: the T frames become a
     batch axis handled by one vmapped (or sharded) apply. Used for dynamic CT
     where every frame shares the projector (reference STEMPO 'real' mode,
     ``trips/utilities/io.py:423-464``).

@@ -158,9 +158,8 @@ def cgls_normal(A, b, x0, max_iter: int, tol=0.0):
     (identical Krylov recurrence; ``delta = p.(A^T A p) == ||Ap||^2``);
     numerically they differ only in f32 roundoff.
 
-    Operators exposing ``normal_matvec`` (e.g. ``BandedProjector`` on TPU)
-    stream their stored weights from HBM ONCE per iteration — half the
-    dominant traffic of a stored-matrix CGLS iteration. Returns (x, k)."""
+    Operators exposing ``normal_matvec`` (e.g. ``BatchedBlockDiagOperator``)
+    use it; others fall back to ``rmatvec(matvec(p))``. Returns (x, k)."""
     s0 = _cgn_init(A, b, x0)
 
     def cond(s):

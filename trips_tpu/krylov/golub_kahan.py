@@ -92,7 +92,7 @@ def golub_kahan_extend(A, U, V, alphas, betas, k0, n_steps,
     more steps (both traced — one compilation covers every chunk).
 
     This is the matvec-economy primitive for Hybrid LSQR's dp_stop
-    (VERDICT r1 item 7): the reference factorizes incrementally and stops
+   : the reference factorizes incrementally and stops
     at the DP iteration (Hybrid_LSQR.py:85-93), paying 2 matvecs per
     completed step only; chunked extension reproduces that O(k) cost with
     O(k / chunk) device dispatches instead of O(k) host round-trips.

@@ -8,10 +8,10 @@ Reference semantics:
   Gaussian PSF (``trips/test_problems/Deblurring2D.py:48-73``); adjoint
   applies the 180-degree-flipped PSF under the same boundary condition.
 
-TPU-first implementations:
+Implementations:
 - 1D: the PSF is full-length, so the operator is materialized once as an
   (n, n) dense matrix (exact scipy semantics by construction) — a single
-  MXU matmul per apply, the fastest possible form at these sizes.
+  matmul per apply.
 - 2D: symmetric-pad + ``lax.conv_general_dilated`` (correlation with the
   flipped kernel == convolution), matching scipy's 'reflect' (a.k.a.
   symmetric) boundary and even-kernel centering; verified against scipy in

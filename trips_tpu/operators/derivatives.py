@@ -1,7 +1,7 @@
 """Derivative regularization operators — structured, matrix-free, jittable.
 
 The reference materializes these as scipy.sparse kron products
-(``trips/utilities/operators.py:24-45``); on TPU the same maps are pure
+(``trips/utilities/operators.py:24-45``); here the same maps are pure
 shift/subtract patterns on reshaped images, which XLA fuses into the
 surrounding elementwise work — no sparse storage, no gathers.
 

@@ -1,20 +1,16 @@
-"""Shear-rotate fan-beam projector — the gather-free fan fast path.
+"""Shear-rotate fan-beam projector — a gather-free surrogate fan projector.
 
-TPU-first redesign of the fan-beam projector (the reference's ASTRA
-'line_fanflat' geometry, ``trips/test_problems/Tomography.py:49-68``).
-
-Why this exists: the exact Siddon fan matrix is unstructured sparsity, and
-on TPU every indexed access costs ~70-100 ns regardless of payload
-(ROADMAP.md), so stored-matrix applies are index-count-bound. This operator
-removes *all* runtime indexing by restructuring fan projection into dense,
-gather-free stages:
+A matrix-free discretization of the reference's ASTRA 'line_fanflat'
+geometry (``trips/test_problems/Tomography.py:49-68``). The exact Siddon
+fan matrix is unstructured sparsity; this operator removes *all* runtime
+indexing by restructuring fan projection into dense, gather-free stages:
 
   A. **Rotate** each view's image into a canonical frame (source at
      ``(0, -so)``, horizontal detector at ``y = +od``) — an exact quarter
      turn (``rot90``: transpose + flip, no resampling) followed by a 3-shear
      rotation for the residual angle in [-45°, 45°). Each shear is a per-line
-     integer roll (log2 decomposition into masked lane/sublane rolls — pure
-     VPU moves) plus a 2-tap fractional blend. All views are processed as one
+     integer roll (log2 decomposition into masked power-of-two rolls) plus
+     a 2-tap fractional blend. All views are processed as one
      batched (na, C, C) array — a single fused XLA program, no per-angle
      dispatch.
   B. **Fan contraction**: in the canonical frame the geometry is *identical
@@ -46,8 +42,6 @@ exact-Siddon matrix at measurement-noise level is pinned by tests
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,7 +63,7 @@ class ShearFanProjector(LinearOperator):
     row 0 at the top, matching ``fan_beam_matrix``.
 
     ``g_dtype`` controls the storage dtype of the stage-B constant
-    (bfloat16 halves its HBM stream on TPU; accumulation stays f32).
+    (bfloat16 halves the bytes it streams; accumulation stays f32).
     """
 
     def __init__(self, nx, angles=None, views=None, det_count=None,
@@ -109,7 +103,6 @@ class ShearFanProjector(LinearOperator):
         phi = angles - k * (np.pi / 2)  # residual in [-45, 45)
         self._kgroups = tuple(
             tuple(int(a) for a in np.nonzero(k == kk)[0]) for kk in (0, 1, 2))
-        self._kq = tuple(int(v) for v in k)
         # rotate-by-(-phi) in pull-back form (out(c) = in(c + shift)):
         # shifts sx = -tan(phi/2)*y per row, sy = -sin(phi)*x per column,
         # applied as ShX, ShY, ShX (sign conventions pinned numerically
@@ -135,17 +128,10 @@ class ShearFanProjector(LinearOperator):
         # ---- stage-B constant: built lazily on device -------------------
         self._g_dtype = g_dtype
         self.G = self._build_g()
-        # detector-major flattened layout for the fused-A^T A kernel,
-        # stored once — transposing 100+ MB inside the solver loop is not
-        # reliably hoisted by XLA and costs more than the stream it saves
-        self.Gt = jnp.transpose(
-            jnp.reshape(self.G, (self._C * self._C, self.G.shape[2])))
 
     def _build_g(self):
-        """(C, C, p_pad) hat-weight constant, from iota arithmetic on
-        device; the detector axis is padded to a multiple of 128 with zero
-        columns (lane-aligned blocks for the fused-A^T A Pallas kernel —
-        zero columns contribute nothing in either direction)."""
+        """(C, C, p) hat-weight constant, from iota arithmetic on
+        device."""
         C, p = self._C, self.det_count
         so, od, dw = self._so, self._od, self._dw
         cc = (C - 1) / 2.0
@@ -163,9 +149,6 @@ class ShearFanProjector(LinearOperator):
         w = step[None, None, :] * live[:, None, None]
         G = w * ((cix == c0[:, None, :]) * (1.0 - f)[:, None, :]
                  + (cix == (c0 + 1.0)[:, None, :]) * f[:, None, :])
-        p_pad = _round_up(p, 128)
-        if p_pad != p:
-            G = jnp.pad(G, ((0, 0), (0, 0), (0, p_pad - p)))
         return G.astype(self._g_dtype)
 
     # -- shear machinery ---------------------------------------------------
@@ -217,113 +200,21 @@ class ShearFanProjector(LinearOperator):
         perm[np.asarray(order)] = np.arange(self.n_angles)
         return R[jnp.asarray(perm)] if list(order) != sorted(order) else R
 
-    # -- Pallas fast path (TPU): rotate stage in VMEM ----------------------
-    @staticmethod
-    def _use_pallas():
-        try:
-            return jax.devices()[0].platform == "tpu"
-        except Exception:  # noqa: BLE001
-            return False
-
-    def _quarters(self, X):
-        C, nx = self._C, self.nx
-        off = (C - nx) // 2
-        canvas = jnp.zeros((C, C), X.dtype)
-        canvas = jax.lax.dynamic_update_slice(canvas, X, (off, off))
-        return jnp.stack([canvas, jnp.rot90(canvas, k=-1),
-                          jnp.rot90(canvas, k=-2)])
-
-    def _rotate_pallas(self, X):
-        from .pallas_shear import rotate_all_pallas
-
-        return rotate_all_pallas(
-            self._quarters(X).astype(jnp.float32), self._kx, self._fx,
-            self._ky, self._fy, self._kq, out_dtype=self.G.dtype)
-
-    def _rotate_adjoint_pallas(self, Radj):
-        from .pallas_shear import rotate_all_adjoint_pallas
-
-        acc = jnp.promote_types(self.dtype_, jnp.float32)
-        Q = rotate_all_adjoint_pallas(
-            Radj, self._kx, self._fx, self._ky, self._fy, self._kq,
-            out_dtype=acc)
-        canvas = Q[0] + jnp.rot90(Q[1], k=1) + jnp.rot90(Q[2], k=2)
-        off = (self._C - self.nx) // 2
-        return jax.lax.dynamic_slice(canvas, (off, off),
-                                     (self.ny, self.nx))
-
-    def _forward(self, x, force_xla=False):
+    def _forward(self, x):
         X = x.reshape(self.ny, self.nx)
-        R = (self._rotate_all(X) if force_xla or not self._use_pallas()
-             else self._rotate_pallas(X))
+        R = self._rotate_all(X)
         acc = jnp.promote_types(self.dtype_, jnp.float32)
         y = jnp.einsum("aic,icd->ad", R.astype(self.G.dtype), self.G,
-                       preferred_element_type=acc)[:, :self.det_count]
+                       preferred_element_type=acc)
         return y.reshape(-1).astype(self.dtype_)
 
     def matvec(self, x):
         return self._forward(x.astype(self.dtype_)).astype(x.dtype)
 
     def rmatvec(self, y):
-        if not self._use_pallas():
-            def fwd(x):
-                return self._forward(x, force_xla=True)
-
-            x0 = jax.ShapeDtypeStruct((self.shape[1],), self.dtype_)
-            (xt,) = jax.linear_transpose(fwd, x0)(y.astype(self.dtype_))
-            return xt.astype(y.dtype)
-        acc = jnp.promote_types(self.dtype_, jnp.float32)
-        Y = y.reshape(self.n_angles, self.det_count).astype(self.dtype_)
-        Yp = jnp.pad(Y, ((0, 0), (0, self.G.shape[2] - self.det_count)))
-        Radj = jnp.einsum("ad,icd->aic", Yp.astype(self.G.dtype), self.G,
-                          preferred_element_type=acc).astype(self.G.dtype)
-        xt = self._rotate_adjoint_pallas(Radj).reshape(-1)
+        x0 = jax.ShapeDtypeStruct((self.shape[1],), self.dtype_)
+        (xt,) = jax.linear_transpose(self._forward, x0)(y.astype(self.dtype_))
         return xt.astype(y.dtype)
-
-    def _ata_plan(self):
-        """(dtile, acc_dtype) whose VMEM plan fits — R (na, C*C) in the G
-        dtype + the accumulator + the per-tile contribution + a
-        double-buffered (64, C*C) detector-major G block. Prefers the f32
-        accumulator; falls back to the G dtype, then to the
-        matvec/rmatvec pair (None)."""
-        C, na = self._C, self.n_angles
-        gsz = self.G.dtype.itemsize
-        dtile = 64
-        gbuf = 2 * dtile * C * C * gsz
-        for acc in (jnp.float32, self.G.dtype):
-            a = jnp.dtype(acc).itemsize
-            need = na * C * C * (gsz + 2 * a) + gbuf
-            if need < 112e6:
-                return dtile, jnp.dtype(acc)
-        return None
-
-    def normal_matvec(self, x):
-        """x -> A^T A x.
-
-        A fused Pallas kernel that streams G from HBM once per apply
-        exists (``pallas_shear.gcontract_ata_pallas``; the pair reads G
-        twice, 2x123 MB bf16 at 256^2/60 views) but measured a WASH to
-        -7% against XLA's well-pipelined einsum pair across chip states
-        (r4: 2.29 vs 2.14 ms/iter and 2.22 vs 2.14; it won 1.32x only in
-        one heavily-degraded-chip window) — the kernel's whole-R +
-        64-row-G-tile residency does not overlap DMA/compute as well as
-        XLA's own schedule. Default: the pair; set TRIPS_TPU_SHEAR_ATA=1
-        to use the fused kernel."""
-        use_kernel = os.environ.get("TRIPS_TPU_SHEAR_ATA", "0") == "1"
-        plan = (self._ata_plan()
-                if use_kernel and self._use_pallas() else None)
-        if plan is None:
-            return self.rmatvec(self.matvec(x))
-        from .pallas_shear import gcontract_ata_pallas
-
-        dtile, acc_dtype = plan
-        X = x.reshape(self.ny, self.nx).astype(self.dtype_)
-        R = self._rotate_pallas(X)                       # (na, C, C)
-        Radj = gcontract_ata_pallas(R, self.Gt, dtile=dtile,
-                                    acc_dtype=acc_dtype).astype(
-            self.G.dtype)
-        xt = self._rotate_adjoint_pallas(Radj).reshape(-1)
-        return xt.astype(x.dtype)
 
     def matmat(self, Xm):
         return jax.vmap(self.matvec, in_axes=1, out_axes=1)(Xm)
@@ -334,7 +225,7 @@ class ShearFanProjector(LinearOperator):
 
 register_op(
     ShearFanProjector,
-    ["G", "Gt", "_kx", "_fx", "_ky", "_fy"],
+    ["G", "_kx", "_fx", "_ky", "_fy"],
     ["nx", "ny", "det_count", "n_angles", "shape", "dtype_", "_C",
-     "_kgroups", "_kq", "_so", "_od", "_dw", "_g_dtype"],
+     "_kgroups", "_so", "_od", "_dw", "_g_dtype"],
 )

@@ -6,8 +6,8 @@ stacks them recursively over levels, and applies the 2D analysis operator as
 ``(W_n @ X @ W_m^H).flatten(order='F')`` wrapped in a pylops
 FunctionOperator.
 
-TPU-first: W_n ((2l+1)n, n) is materialized densely once — the 2D apply is
-two MXU matmuls per direction, the fastest form at image sizes.
+W_n ((2l+1)n, n) is materialized densely once — the 2D apply is two dense
+matmuls per direction.
 
 Deviation (deliberate): the reference recursion
 (``create_analysis_operator_rec``, operators.py:85-99) fails to compose the

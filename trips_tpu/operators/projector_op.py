@@ -1,13 +1,12 @@
-"""Matrix-free on-the-fly tomography projector (TPU-native).
+"""Matrix-free on-the-fly tomography projector.
 
 The detector coordinate of pixel (i, c) at a given angle is affine in c for
 parallel-beam geometry, so each (angle, image-row) pair contributes
 ``y[a, :] += M @ X[i, :]`` with an interpolation matrix
 ``M[d, c] = hat(d - (alpha + beta * c))`` that never needs to be stored:
-it is generated on the fly from broadcasted iotas and contracted on the MXU
-immediately. The matrix-stream HBM traffic of the sparse formats (GBs per
-apply) disappears entirely — per apply the only memory touched is the image
-(256 KB) and the sinogram.
+it is generated on the fly from broadcasted iotas and contracted
+immediately. No stored matrix is read — per apply the only memory touched
+is the image and the sinogram.
 
 Exactly reproduces the Joseph ('linear') parallel-beam matrix
 (``problems.projector.parallel_beam_matrix(model='linear')``, the
@@ -23,17 +22,9 @@ import numpy as np
 
 from ..core.linop import LinearOperator, register_op
 
-# Contraction precision for the on-the-fly projectors. HIGHEST costs ~6 MXU
-# passes for true-f32 multiplies; HIGH (3 passes) keeps ~1e-5 relative
-# accuracy which is ample under measurement noise. Override via
-# TRIPS_TPU_PROJ_PRECISION=default|high|highest.
-import os as _os
-
-_PREC = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-}[_os.environ.get("TRIPS_TPU_PROJ_PRECISION", "high").lower()]
+# Exact class: true f32 products (lower precisions run f32 dots in TF32 on
+# GPUs, about three decimal digits).
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def _angle_params(theta, nx, ny, det_count, det_width):
@@ -338,5 +329,3 @@ register_op(
     ["Sx", "Sy", "Dx", "Dy"],
     ["nx", "ny", "det_count", "shape", "n_angles", "_groups", "_row_perm"],
 )
-
-

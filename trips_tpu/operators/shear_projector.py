@@ -1,6 +1,6 @@
-"""Shear-stack parallel-beam projector — the gather-free fast path.
+"""Shear-stack parallel-beam projector — a gather-free surrogate path.
 
-TPU-first redesign of the parallel-beam projector (the reference's STEMPO
+A matrix-free redesign of the parallel-beam projector (the reference's STEMPO
 simulation geometry, ``trips/utilities/io.py:391-420``, ASTRA 'linear').
 The Joseph crossing position of detector ``d`` on driving line ``i`` is
 separable, ``pos(i, d) = u_i + v_d`` (affine in each index), so projection
@@ -9,8 +9,8 @@ factors into three dense, gather-free stages:
   A. **Row shear**: resample image line ``i`` at positions ``u_i + c'``
      (``c'`` integer): an *integer* per-row shift plus a 2-tap fractional
      blend. The integer shift is applied with a log2 decomposition of the
-     shift into lane rolls (`jnp.roll` + select per bit) — no gathers, no
-     dynamic slices, pure VPU work.
+     shift into whole-array rolls (`jnp.roll` + select per bit) — no
+     gathers, no dynamic slices.
   B. **Stack**: sum the sheared lines over ``i`` (scaled by the ray step).
   C. **Detector resample**: evaluate the stacked profile at ``v_d`` — a
      small dense (p x W) hat-weight matmul, generated from iotas.
@@ -25,13 +25,8 @@ standard, slightly smoother discretization of the same line integral (the
 classic shear/slant-stack Radon transform); reconstructions agree with the
 Joseph-matrix reconstructions within the noise level (tested), while the
 apply does ~15x less arithmetic than generating full Joseph weights
-on the fly and streams no matrix from HBM at all.
-
-Why this shape for TPU: every indexed access (XLA gather row, dynamic VMEM
-read) costs ~70-100 ns on this stack regardless of payload (ROADMAP.md), so
-sparse-format applies are index-count-bound. Here the only "indexing" is
-``nbits`` (~9) whole-array lane rolls per angle — contiguous vector moves
-the VPU executes at full width.
+on the fly and reads no stored matrix at all. The only "indexing" is
+``nbits`` (~9) whole-array rolls per angle — contiguous vector moves.
 """
 from __future__ import annotations
 

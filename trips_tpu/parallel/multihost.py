@@ -1,11 +1,10 @@
 """Multi-host initialization and pod-slice meshes.
 
-The reference is single-process (SURVEY.md §2.10). For multi-host TPU pod
-slices the standard JAX recipe applies: every host calls
-``init_multihost()`` (jax.distributed), then builds one global mesh over
-``jax.devices()`` — the sharded operators in ``parallel.sharding`` work
-unchanged, with XLA routing intra-slice collectives over ICI and cross-host
-ones over DCN.
+The reference is single-process (SURVEY.md §2.10). For multi-host runs the
+standard JAX recipe applies: every host calls ``init_multihost()``
+(jax.distributed), then builds one global mesh over ``jax.devices()`` — the
+sharded operators in ``parallel.sharding`` work unchanged, with XLA routing
+collectives over the hosts' interconnect.
 
 This module is exercised two ways: single-process on the simulated
 8-device mesh (test suite, driver ``dryrun_multichip``), and in REAL
@@ -13,8 +12,8 @@ multi-process form by ``tests/test_multihost.py`` — 2 OS processes
 rendezvous through ``init_multihost`` over a localhost gRPC
 coordinator, build one global ``pod_mesh`` of 2x4 CPU devices, and
 parity-check cross-process psums, fused CGLS and the int8 bucketed
-champion format against single-process oracles. Real pod-slice runs
-use the same entry points with the TPU backend.
+format against single-process oracles. Runs on several GPU hosts use
+the same entry points.
 """
 from __future__ import annotations
 
@@ -39,10 +38,10 @@ def init_multihost(coordinator_address=None, num_processes=None,
 def pod_mesh(time_shards=1, rows_shards=None):
     """Global mesh over all devices of the (possibly multi-host) runtime.
 
-    Lay the 'rows' axis along the fastest (intra-host/ICI) dimension and
-    'time' across hosts: the dynamic-CT time axis only exchanges
-    nearest-neighbor halos (spacetime TV), which tolerates DCN latency,
-    while SpMV partial-sum psums stay on ICI.
+    Lay the 'rows' axis along the fastest (intra-host, NVLink) dimension
+    and 'time' across hosts: the dynamic-CT time axis only exchanges
+    nearest-neighbor halos (spacetime TV), which tolerates the inter-host
+    network's latency, while SpMV partial-sum psums stay within a host.
     """
     devices = jax.devices()
     n = len(devices)

@@ -1,28 +1,21 @@
-"""Angle-sharded banded projector: the multi-chip path on the *champion*
-single-chip format.
+"""Angle-sharded banded projector: the banded format across devices.
 
-The shear-packed banded projector (``sparse/banded.py`` + the Pallas
-kernel) is the measured single-chip champion for the exact fan matrix
-(6.7 Gnnz/s bf16, r2 sweep). Its apply is already angle-major — the Pallas
-grid iterates angles, every angle is independent in the forward and
-contributes additively in the adjoint — so the natural mesh partition is
-**angles across chips**:
+The shear-packed banded projector (``sparse/banded.py``) is angle-major:
+every angle is independent in the forward and contributes additively in
+the adjoint, so the natural mesh partition is **angles across devices**:
 
-- forward: each chip runs the kernel over its local angle slab against the
-  replicated image and emits its sinogram rows — zero cross-chip
-  communication;
-- adjoint: each chip accumulates its local angles' image contribution,
+- forward: each device applies its local angle slab to the replicated
+  image and emits its sinogram rows — no cross-device communication;
+- adjoint: each device accumulates its local angles' image contribution,
   then one ``psum`` over the mesh axis replicates the image (n*n floats —
   tiny next to the weight stream).
 
 Both drive groups (row-driven / column-driven angles) are padded to a
 multiple of the mesh axis with zero-weight angles (zero contribution in
-both directions). ``P`` is stored mod-n so the same tables feed the Pallas
-kernel and the XLA fallback (CPU test meshes).
+both directions). ``P`` is stored mod-n (``apply_group_xla(wrap=True)``).
 
 Distribution is a new subsystem (reference is single-process NumPy,
-SURVEY.md §2.10); this is the scaling story for the format the TPU perf
-path actually recommends.
+SURVEY.md §2.10).
 """
 from __future__ import annotations
 
@@ -33,10 +26,6 @@ from jax.sharding import NamedSharding, PartitionSpec
 
 from ..core.linop import LinearOperator, register_op
 from ..sparse.banded import BandedProjector, apply_group_xla
-
-
-def _use_pallas():
-    return jax.devices()[0].platform == "tpu"
 
 
 class ShardedBandedProjector(LinearOperator):
@@ -110,7 +99,7 @@ class ShardedBandedProjector(LinearOperator):
 
         return dequant_slab(W, sc)
 
-    # -- single-program merged applies (VERDICT r3 item 3) ----------------
+    # -- single-program merged applies --------------------------------
     #
     # Both drive groups run inside ONE shard_map program per apply; the
     # adjoint/normal contributions of the two groups are summed locally so
@@ -156,14 +145,8 @@ class ShardedBandedProjector(LinearOperator):
                 sc = flat[k + 3] if has_sc else None
                 k += 4 if has_sc else 3
                 Xg = X.T if is_cols else X
-                if _use_pallas():
-                    from ..sparse.pallas_banded_kernel import _fwd_call
-
-                    outs.append(_fwd_call(Xg, W, Sf, Pm, ng, scales=sc))
-                else:
-                    outs.append(apply_group_xla(npd, ng, Xg,
-                                                self._deq(W, sc), Sf, Pm,
-                                                False, wrap=True))
+                outs.append(apply_group_xla(npd, ng, Xg, self._deq(W, sc),
+                                            Sf, Pm, False, wrap=True))
             return tuple(outs)
 
         f = jax.shard_map(
@@ -177,10 +160,9 @@ class ShardedBandedProjector(LinearOperator):
         return y.reshape(-1).astype(x.dtype)
 
     def normal_matvec(self, x):
-        """x -> A^T A x: the fused per-angle kernel on each chip's local
-        angle slab of BOTH drive groups, locally summed, then ONE psum over
-        the mesh axis — the single-chip ``cgls_normal`` weight-stream
-        economy with exactly one collective (n_pad^2 f32) per apply."""
+        """x -> A^T A x: forward and adjoint on each device's local angle
+        slab of BOTH drive groups, locally summed, then ONE psum over the
+        mesh axis — exactly one collective (n_pad^2 f32) per apply."""
         n = self.nx
         npd = self.n_pad
         X0 = self._embed(x)
@@ -197,16 +179,11 @@ class ShardedBandedProjector(LinearOperator):
                 sc = flat[k + 3] if has_sc else None
                 k += 4 if has_sc else 3
                 Xg = X.T if is_cols else X
-                if _use_pallas():
-                    from ..sparse.pallas_banded_kernel import _ata_call
-
-                    c = _ata_call(Xg, W, Sf, Pm, ng, scales=sc)
-                else:
-                    Wf = self._deq(W, sc)
-                    yg = apply_group_xla(npd, ng, Xg, Wf, Sf, Pm, False,
-                                         wrap=True)
-                    c = apply_group_xla(npd, ng, None, Wf, Sf, Pm, True,
-                                        y_rows=yg, wrap=True)
+                Wf = self._deq(W, sc)
+                yg = apply_group_xla(npd, ng, Xg, Wf, Sf, Pm, False,
+                                     wrap=True)
+                c = apply_group_xla(npd, ng, None, Wf, Sf, Pm, True,
+                                    y_rows=yg, wrap=True)
                 acc = acc + (c.T if is_cols else c)
             return jax.lax.psum(acc, ax)
 
@@ -234,14 +211,8 @@ class ShardedBandedProjector(LinearOperator):
                 W, Sf, Pm = flat[k:k + 3]
                 sc = flat[k + 3] if has_sc else None
                 k += 4 if has_sc else 3
-                if _use_pallas():
-                    from ..sparse.pallas_banded_kernel import _adj_call
-
-                    c = _adj_call(ys[i], W, Sf, Pm, ng, scales=sc)
-                else:
-                    c = apply_group_xla(npd, ng, None, self._deq(W, sc),
-                                        Sf, Pm, True, y_rows=ys[i],
-                                        wrap=True)
+                c = apply_group_xla(npd, ng, None, self._deq(W, sc), Sf, Pm,
+                                    True, y_rows=ys[i], wrap=True)
                 acc = acc + (c.T if is_cols else c)
             return jax.lax.psum(acc, ax)
 
@@ -270,9 +241,8 @@ register_op(
 
 
 class ShardedBucketedBandedProjector(ShardedBandedProjector):
-    """Angle-sharded Ta-bucketed banded projector: the single-chip champion
-    format (``BucketedBandedProjector``, r4: +21% bf16 / +40% f32 over the
-    flat pack) carried to the mesh (VERDICT r4 item 5).
+    """Angle-sharded Ta-bucketed banded projector
+    (``BucketedBandedProjector`` carried to the mesh).
 
     Each bucket's angle dim is padded to a multiple of the mesh axis with
     zero-weight angles and sharded on dim 0; all buckets of both drive
@@ -298,11 +268,7 @@ class ShardedBucketedBandedProjector(ShardedBandedProjector):
     @classmethod
     def from_bucketed(cls, op, mesh, axis: str = "angles"):
         """Shard a ``sparse.banded_buckets.BucketedBandedProjector``
-        (f32/bf16 or int8-with-scales storage; ap must be 1)."""
-        if getattr(op, "ap", 1) != 1:
-            raise ValueError(
-                "sharding supports ap=1 bucketed packs; angle-pair "
-                "batching is a single-chip experiment knob")
+        (f32/bf16 or int8-with-scales storage)."""
         S_dev = mesh.shape[axis]
 
         def sh(a):

@@ -1,10 +1,8 @@
-"""Row-sharded BSR operators: the multi-chip path on the *fast* format.
+"""Row-sharded BSR operators: the block-sparse format across devices.
 
-Round 1 sharded padded-ELL — a gather format measured ~100x off the
-single-chip best on TPU (BASELINE.md). These operators shard the BSR
-block stream (the measured single-chip champion: MXU-sized dense blocks +
+These operators shard the BSR block stream (small dense blocks +
 einsum/segment-sum apply, ``sparse/bsr.py``) with ``jax.shard_map`` and
-explicit collectives (VERDICT r1 item 3):
+explicit collectives:
 
 - **Forward** (row partition): each chip owns the blocks whose block-row
   falls in its contiguous row range; x is replicated into the shard_map

@@ -12,10 +12,8 @@ as (nt, na, T, n_pad, p_pad) arrays, which map directly onto a 2-D
 - adjoint / fused A^T A: one ``psum`` over the 'angles' axis per frame
   slab (the n_pad^2 image contribution) — nothing crosses the time axis.
 
-This carries the champion single-chip economy (fused A^T A, single
-weight stream) to the full dynamic mesh: SURVEY §5.7's "frames across
-hosts x rows within a frame" realized as frames x angles on the banded
-format. The spacetime-TV halo over time is handled by the L operator
+SURVEY §5.7's "frames across hosts x rows within a frame" realized as
+frames x angles on the banded format. The spacetime-TV halo over time is handled by the L operator
 (GSPMD nearest-neighbor), not here.
 """
 from __future__ import annotations
@@ -28,13 +26,6 @@ from jax.sharding import NamedSharding, PartitionSpec
 from ..core.linop import LinearOperator, register_op
 from ..sparse.banded import apply_group_xla
 from ..sparse.dynamic_banded import DynamicBandedOperator
-
-
-def _use_pallas():
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        return False
 
 
 class ShardedDynamicBandedOperator(LinearOperator):
@@ -113,27 +104,15 @@ class ShardedDynamicBandedOperator(LinearOperator):
     _deq = staticmethod(DynamicBandedOperator._deq)
 
     def _frame_fwd(self, W, S, Pm, X, sc=None):
-        if _use_pallas():
-            from ..sparse.pallas_banded_kernel import _fwd_call
-
-            return _fwd_call(X, W, S, Pm, self.n_groups, scales=sc)
         return apply_group_xla(self.n_pad, self.n_groups, X,
                                self._deq(W, sc), S, Pm, False, wrap=True)
 
     def _frame_adj(self, W, S, Pm, Yg, sc=None):
-        if _use_pallas():
-            from ..sparse.pallas_banded_kernel import _adj_call
-
-            return _adj_call(Yg, W, S, Pm, self.n_groups, scales=sc)
         return apply_group_xla(self.n_pad, self.n_groups, None,
                                self._deq(W, sc), S, Pm, True, y_rows=Yg,
                                wrap=True)
 
     def _frame_ata(self, W, S, Pm, X, sc=None):
-        if _use_pallas():
-            from ..sparse.pallas_banded_kernel import _ata_call
-
-            return _ata_call(X, W, S, Pm, self.n_groups, scales=sc)
         Wf = self._deq(W, sc)
         y = apply_group_xla(self.n_pad, self.n_groups, X, Wf, S, Pm,
                             False, wrap=True)
@@ -150,7 +129,7 @@ class ShardedDynamicBandedOperator(LinearOperator):
         return jnp.zeros((self.nt, npd, npd), X.dtype).at[
             :, :n, :n].set(X)
 
-    # -- single-program merged applies (VERDICT r3 item 3) ----------------
+    # -- single-program merged applies --------------------------------
     #
     # Both drive groups run inside ONE shard_map program per apply; their
     # image contributions are summed locally so exactly ONE psum over the
@@ -241,10 +220,9 @@ class ShardedDynamicBandedOperator(LinearOperator):
         return img[:, :n, :n].reshape(-1).astype(yv.dtype)
 
     def normal_matvec(self, x):
-        """Fused per-angle A^T A on every (frame, angle) shard of BOTH
-        drive groups, locally summed; ONE psum over the 'angles' axis per
-        apply — single weight stream per CGLS iteration across the whole
-        dynamic mesh."""
+        """Per-angle A^T A on every (frame, angle) shard of BOTH drive
+        groups, locally summed; ONE psum over the 'angles' axis per
+        apply."""
         n = self.nx
         X = self._embed(x)
         ta, aa = self.t_axis, self.a_axis
@@ -283,10 +261,8 @@ register_op(
 
 
 class ShardedBucketedDynamicBandedOperator(ShardedDynamicBandedOperator):
-    """(time x angles)-sharded Ta-bucketed dynamic operator: the r4
-    dynamic champion format (``BucketedDynamicBandedOperator``, +29-45%
-    over the flat stack at STEMPO scale) on the full dynamic mesh
-    (VERDICT r4 item 5).
+    """(time x angles)-sharded Ta-bucketed dynamic operator
+    (``BucketedDynamicBandedOperator`` on the full dynamic mesh).
 
     Every bucket's angle dim is padded to a multiple of the 'angles' mesh
     axis (zero-weight angles, out-of-range scatter ids) and sharded; all

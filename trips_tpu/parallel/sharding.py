@@ -54,7 +54,7 @@ class ShardedEllOperator(LinearOperator):
 
     The forward tables are sharded by operator row; the transpose tables are
     sharded by operator column (so A^T u's output is itself row-sharded in
-    x-space and the gather of the sharded u is what moves over ICI — for
+    x-space and the gather of the sharded u is what moves between devices — for
     tomography m << n, the cheaper direction).
     """
 

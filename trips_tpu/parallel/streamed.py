@@ -1,5 +1,5 @@
 """Out-of-core dynamic CT: host-resident per-frame packs streamed to the
-device with a two-slot pipeline (VERDICT r4 item 6 / ROADMAP r5 item 3).
+device with a two-slot pipeline.
 
 Full-resolution STEMPO real (2240 detectors, thinning=1,
 ``trips/utilities/io.py:423-464``) packs to ~GBs per frame set — beyond
@@ -12,7 +12,7 @@ to the device, prefetching frame t+1 while frame t computes:
   so H2D rides under compute wherever the interconnect allows;
 - at most two frame slabs are device-resident (the computing one and the
   prefetched one) — device memory is O(largest frame), not O(nt);
-- applies are per-frame jitted programs (the same Pallas/XLA kernels as
+- applies are per-frame jitted programs (the same XLA applies as
   the resident operators); the frame loop is host-level Python, which is
   the out-of-core execution mode — per-frame work at full resolution is
   hundreds of ms, so the ~ms dispatch overhead is noise.

@@ -227,8 +227,8 @@ def analytic_sinogram(ellipses, nx, geometry="fan", angles=None,
                       source_origin=None, origin_det=None, ny=None):
     """Closed-form sinogram of a sum of constant-density ellipses — an
     implementation-independent oracle for the discrete projectors
-    (VERDICT r4 item 8: the builders were previously validated only
-    against their own NumPy/C++ twins).
+    (the builders are otherwise validated only against their own
+    NumPy/C++ twins).
 
     ``ellipses``: iterable of (rho, a, b, cx, cy, phi_rad) in PIXEL units
     with the module's image coordinates (origin at the image center,

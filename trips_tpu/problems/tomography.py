@@ -6,8 +6,8 @@ C++ projector replaced by the native matrix generator
 (p = int(sqrt(2)*nx) detectors, theta in [0, pi), source 3*nx, detector nx,
 pixel size (so+od)/so — Tomography.py:53-60), inverse crime is avoided by
 generating data with angles shifted by 1e-8 rad (Tomography.py:62-67), and
-the solver-facing operator is a device sparse operator (BSR on TPU, ELL on
-CPU backends).
+the solver-facing operator is the device sparse operator chosen by
+``device_sparse_operator``.
 """
 from __future__ import annotations
 
@@ -22,30 +22,30 @@ from . import phantoms as phantom
 from .projector import fan_beam_matrix
 
 
+# Stored-matrix format for exact-class (f32/f64) matrices: the fastest
+# exact XLA form in the fused CGLS loop on an H100 (PERF.md, "Format
+# ranking").
+DEFAULT_FORMAT = "ell"
+
+
 def device_sparse_operator(A_csr, prefer_bsr=None, dtype=np.float32,
                            nx=None, angles=None, prefer=None):
-    """Wrap a host CSR matrix as the best device operator for the backend.
+    """Wrap a host CSR matrix as a device operator.
 
-    With fan/parallel geometry metadata (``nx`` + ``angles``) on TPU the
-    Ta-bucketed banded pack is used — the measured champion format
-    (BENCH r5: exact f32 6.1 Gnnz/s; bf16 14.2; int8 14.5 vs 2.3-2.5 for
-    BSR) — falling back to BSR/ELL when the pack preconditions do not
-    hold. ``dtype`` float32 keeps the exact matrix (the default);
-    ``jnp.bfloat16`` or ``"int8"`` select the quantized-class champions
-    (<1%-of-norm recon deviation, pinned by tests). ``prefer`` forces
-    'banded' | 'bsr' | 'ell'."""
-    import jax
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    int8 = np.dtype(dtype) == np.int8
+    One rule on every platform. ``prefer`` forces 'banded' | 'bsr' |
+    'ell'. Otherwise exact-class matrices (``dtype`` float32/float64) use
+    ``DEFAULT_FORMAT``, and the quantized classes (``jnp.bfloat16`` or
+    ``"int8"``, <1%-of-norm recon deviation, pinned by tests) use the
+    Ta-bucketed banded pack when fan/parallel geometry (``nx`` +
+    ``angles``) is given. A banded pack whose preconditions do not hold
+    falls back to ``DEFAULT_FORMAT``."""
+    quantized = np.dtype(dtype) not in (np.float32, np.float64)
     if prefer is None and prefer_bsr is not None:  # legacy flag
         prefer = "bsr" if prefer_bsr else "ell"
+    geometry = (nx is not None and angles is not None
+                and A_csr.shape[1] == nx * nx)
     if prefer is None:
-        if (on_tpu and nx is not None and angles is not None
-                and A_csr.shape[1] == nx * nx):
-            prefer = "banded"
-        else:
-            prefer = "bsr" if on_tpu else "ell"
+        prefer = "banded" if quantized and geometry else DEFAULT_FORMAT
     if prefer == "banded":
         from ..sparse import BucketedBandedProjector
 
@@ -57,11 +57,11 @@ def device_sparse_operator(A_csr, prefer_bsr=None, dtype=np.float32,
             return BucketedBandedProjector.from_scipy_fan(
                 A_csr, nx, views=None, angles=np.asarray(angles),
                 n_groups=ng,
-                dtype=("int8" if int8
+                dtype=("int8" if np.dtype(dtype) == np.int8
                        else None if np.dtype(dtype) == np.float32
                        else dtype))
-        except Exception:  # noqa: BLE001 — pack precondition -> fallback
-            prefer = "bsr" if on_tpu else "ell"
+        except (ValueError, AssertionError):  # pack preconditions
+            prefer = DEFAULT_FORMAT
     if prefer == "bsr":
         return BsrOperator.from_scipy(A_csr, dtype=dtype)
     return EllOperator.from_scipy(A_csr, dtype=dtype)

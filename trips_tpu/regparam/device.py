@@ -208,8 +208,8 @@ def _dp_newton_filtered(sv2, bhat, thresh, testzero):
     float32-robust: f' is evaluated in the cancellation-free analytic form
     -2 sum(sv2 * (filt*bhat)^2 * filt) — the reference's difference form
     2/beta * z(w - z) underflows to 0 in f32 when beta*sv2 << 1 (w == z to
-    machine precision), which turns the first Newton step into inf/NaN on
-    TPU — and any non-finite or non-positive step stalls at the last good
+    machine precision), which turns the first Newton step into inf/NaN —
+    and any non-finite or non-positive step stalls at the last good
     beta instead of propagating."""
 
     def newton(_):
@@ -256,7 +256,7 @@ def dp_lambda(B, bproj, delta, eta=1.01):
 # regparam/dp.py:133-158; reference gcv.py:96-122,
 # discrepancy_principle.py:100-128): the reference's python loops become
 # reversed cumulative sums + argmin/argmax, so truncation solvers can pick k
-# inside a jitted program (VERDICT r3 item 7).
+# inside a jitted program.
 
 
 def _suffix_sums(bhat, n):

@@ -1,4 +1,4 @@
-"""Checkpointable fused solver loops (VERDICT r3 item 5).
+"""Checkpointable fused solver loops.
 
 The fused solvers (``fused.py``) run all ``n_iter`` iterations in one XLA
 program — a 100-iteration STEMPO-scale solve that dies restarts from zero.
@@ -11,7 +11,7 @@ program is identical for every chunk, so the op sequence — hence f32
 rounding — is unchanged; pinned by tests/test_checkpoint_fused.py).
 
 The reference has no checkpointing at all (SURVEY.md §5.4); this exists for
-the long multi-host runs the TPU framework targets.
+long multi-device runs.
 """
 from __future__ import annotations
 

@@ -63,7 +63,7 @@ def _filtered_pencil(R_A, R_L, bproj, active):
     sums over (sv2, bhat) — evaluated inside Brent/Newton loops with no
     k x k solves. This is both cheaper (O(k) per lam evaluation instead of
     O(k^3)) and float32-robust: the normal-equations solve squares the
-    pencil's condition number, and on TPU (f32-only) that was enough to
+    pencil's condition number, and in pure f32 that was enough to
     move the GCV minimizer by orders of magnitude vs the f64 host rule.
 
     Works for square masked pencils (GKS/MMGKS) and rectangular (k+1, k)
@@ -110,7 +110,7 @@ def _gcv_lambda_masked(R_A, R_L, bproj, t_term, active_mask, out_norm2=0.0,
         #                = (t_term - k) + sum_live(lam/d):
         # cancellation-free, where the direct subtraction k - (k - eps)
         # is pure noise in f32 for small lam (it moved the GCV minimizer
-        # by orders of magnitude on TPU)
+        # by orders of magnitude in pure f32)
         den = (t_term - k_active) + jnp.sum(jnp.where(live, lam / d, 0.0))
         return num / den**2
 
@@ -161,7 +161,7 @@ def _lcurve_lambda_masked(R_A, R_L, bproj, active):
     curvature of (f, g) = (||R_A x - b||^2, ||R_L x||^2), Brent on
     [1e-9, 2] (reference l_curve.py:171-203). Derivatives are evaluated
     as elementwise filtered-SVD sums — identical in exact arithmetic to
-    the reference's repeated (C + lam D) solves, f32-robust on TPU:
+    the reference's repeated (C + lam D) solves, f32-robust:
 
       f' = 2 lam sum(b^2 s2/d^3)       g' = -2 sum(b^2 s2/d^3)
       f'' = 2 sum(b^2 s2 (s2-2lam)/d^4) g'' = 6 sum(b^2 s2/d^4),  d = s2+lam
@@ -262,7 +262,7 @@ def fused_gks(A, b, L, projection_dim=3, n_iter=20, regparam=1.0,
     """All-on-device GKS. Returns (x, lambda_history, residual_history).
 
     regparam_mode: 'gcv' | 'dp' | 'l_curve' | 'scalar' — all four run
-    on device with no host sync (VERDICT r1 item 6). 'dp' requires
+    on device with no host sync. 'dp' requires
     ``delta``. ``use_gcv`` is the legacy round-1 flag (True -> 'gcv',
     False -> 'scalar'); ``regparam`` is the fixed lam for 'scalar'.
     """

@@ -1,5 +1,4 @@
-"""Reference-parity ``(x, info)`` adapters for the fused solvers
-(VERDICT r4 item 6/9).
+"""Reference-parity ``(x, info)`` adapters for the fused solvers.
 
 The fused solvers return bare ``(x, lambda_history[, residual_history])``
 tuples; the reference's solvers return ``(x, info)`` with ``xHistory``,
@@ -7,7 +6,7 @@ tuples; the reference's solvers return ``(x, info)`` with ``xHistory``,
 (``trips/solvers/GKS.py:97-105``, ``Hybrid_LSQR.py:108-113``). These
 wrappers scan the SAME fused device bodies (identical trajectories — the
 loop is ``lax.scan`` instead of ``lax.fori_loop``, stacking the iterate),
-so the README migration table's TPU path is drop-in: one device program,
+so the README migration table's device path is drop-in: one device program,
 no host round-trips, reference info keys.
 
 ``x_true`` (optional) adds the per-iteration ``relError`` history computed

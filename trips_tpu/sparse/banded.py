@@ -23,10 +23,8 @@ shear is a roll).
 The drive axis per angle follows Joseph's rule (rows when |cos θ| >= |sin θ|,
 else columns, operating on the transposed image), chosen statically.
 
-Applies:
-- ``matvec/rmatvec`` dispatch to the Pallas TPU kernel
-  (``pallas_banded.py``) and fall back to the XLA gather apply elsewhere —
-  the XLA form is the correctness oracle (exact same arithmetic band).
+Applies: ``matvec``/``rmatvec`` are one gather + einsum (forward) and one
+scatter-add (adjoint) per drive group (``apply_group_xla``).
 
 Replaces the role of ASTRA's stored projector
 (``trips/test_problems/Tomography.py:73-88``) on the stored-matrix path.
@@ -51,8 +49,8 @@ def _pack_angle(coo_d, coo_i, coo_c, coo_v, n, p, n_groups, n_pad=None):
 
     Returns (W (T_a, n_pad, p), shift (n_pad,), P (n_groups, p)) with
     column = shift[i] + P[g(i), d] + t. ``n_pad >= n`` pads the line/roll
-    axis to a lane-aligned size (padded lines carry zero weight, so the
-    kernel's mod-n_pad wraps stay exact: true columns never wrap).
+    axis to a multiple of 128 (padded lines carry zero weight, so the
+    mod-n_pad wraps stay exact: true columns never wrap).
     """
     n_pad = n if n_pad is None else n_pad
     from ..native import pack_angle as _native_pack
@@ -123,8 +121,9 @@ def _pack_groups(A, nx, views, angles, n_groups):
     coo = A.tocoo()
     p = A.shape[0] // len(angles)
     n = nx
-    # lane-align the roll axis so every grid size gets the Pallas
-    # kernel (ROADMAP r3 item 3); padded lines are zero-weight
+    # pad the roll axis to a multiple of 128 (the pack layout the
+    # bucketed/sharded tables and their tests assume); padded lines are
+    # zero-weight
     n_pad = -(-n // 128) * 128
     if n_pad % n_groups:
         raise ValueError(
@@ -201,12 +200,10 @@ class BandedProjector(LinearOperator):
 
     def __init__(self, W_rows, shift_rows, P_rows, angles_rows,
                  W_cols, shift_cols, P_cols, angles_cols,
-                 shape, nx, p, n_groups, nnz, prefer_pallas=True,
-                 batched_groups=False, n_pad=None):
+                 shape, nx, p, n_groups, nnz, n_pad=None):
         # *_rows: angles driven along image rows; *_cols: transposed drive.
-        # W_* layout: (na_g, T, n, p_pad) with the detector lane axis padded
-        # to a multiple of 128 (zero weights past det_count) so the Pallas
-        # kernel's VMEM tiles are lane-aligned.
+        # W_* layout: (na_g, T, n, p_pad) with the detector axis padded to
+        # a multiple of 128 (zero weights past det_count).
         self.W_rows = W_rows
         self.shift_rows = shift_rows
         self.P_rows = P_rows
@@ -217,21 +214,16 @@ class BandedProjector(LinearOperator):
         self._angles_cols = tuple(angles_cols)
         self.shape = tuple(shape)
         self.nx = nx
-        # line/roll-axis size: lane-aligned padding of nx (padded lines
+        # line/roll-axis size: nx padded to a multiple of 128 (padded lines
         # carry zero weight; rolls and predictors work mod n_pad)
         self.n_pad = nx if n_pad is None else n_pad
         self.det_count = p
         self.n_groups = n_groups
         self.nnz = nnz
-        self.prefer_pallas = prefer_pallas
-        # one G-batched dot_general per stage instead of the per-group
-        # loop (kernel-level toggle; arithmetic identical — test_banded)
-        self.batched_groups = batched_groups
 
     @classmethod
     def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
-                       dtype=None, lane_pad=128, prefer_pallas=True,
-                       batched_groups=False):
+                       dtype=None, lane_pad=128):
         """Pack an angle-major fan/parallel matrix (rows = a*p + d)."""
         packs, idx, angles, p, n_pad = _pack_groups(A, nx, views, angles,
                                                     n_groups)
@@ -248,9 +240,7 @@ class BandedProjector(LinearOperator):
                    idx[True],
                    jnp.asarray(Wc), jnp.asarray(Sc), jnp.asarray(Pc),
                    idx[False],
-                   A.shape, nx, p, n_groups, A.nnz,
-                   prefer_pallas=prefer_pallas,
-                   batched_groups=batched_groups, n_pad=n_pad)
+                   A.shape, nx, p, n_groups, A.nnz, n_pad=n_pad)
 
     @property
     def T_rows(self):
@@ -296,7 +286,6 @@ class BandedProjector(LinearOperator):
         M.sum_duplicates()
         return M
 
-    # ---- XLA applies (oracle / CPU fallback) ----------------------------
     def _apply_group_xla(self, X, W, S, P, transpose, y_rows=None):
         return apply_group_xla(self.n_pad, self.n_groups, X, W, S, P,
                                transpose, y_rows=y_rows)
@@ -309,26 +298,6 @@ class BandedProjector(LinearOperator):
         return jnp.zeros((npd, npd), X.dtype).at[:n, :n].set(X)
 
     def matvec(self, x):
-        from .pallas_banded import banded_apply
-
-        return banded_apply(self, x, transpose=False)
-
-    def rmatvec(self, y):
-        from .pallas_banded import banded_apply
-
-        return banded_apply(self, y, transpose=True)
-
-    def normal_matvec(self, x):
-        """x -> A^T A x with the fused per-angle kernel on TPU: the weight
-        stream is read from HBM once per normal-equations apply instead of
-        once each for the forward and the adjoint (the dominant cost of a
-        CGLS iteration is the stored-band stream). Falls back to
-        rmatvec(matvec(x)) off-TPU."""
-        from .pallas_banded import banded_normal_apply
-
-        return banded_normal_apply(self, x)
-
-    def matvec_xla(self, x):
         n, p = self.nx, self.det_count
         X = self._embed(x.reshape(n, n))
         na = len(self._angles_rows) + len(self._angles_cols)
@@ -343,7 +312,7 @@ class BandedProjector(LinearOperator):
             y = y.at[jnp.asarray(self._angles_cols)].set(yc[:, :p])
         return y.reshape(-1).astype(x.dtype)
 
-    def rmatvec_xla(self, y):
+    def rmatvec(self, y):
         n, p = self.nx, self.det_count
         Y = y.reshape(-1, p)
         acc = jnp.promote_types(y.dtype, jnp.float32)
@@ -363,14 +332,13 @@ register_op(
     BandedProjector,
     ["W_rows", "shift_rows", "P_rows", "W_cols", "shift_cols", "P_cols"],
     ["_angles_rows", "_angles_cols", "shape", "nx", "det_count", "n_groups",
-     "nnz", "prefer_pallas", "batched_groups", "n_pad"],
+     "nnz", "n_pad"],
 )
 
 
 def dequant_slab(W, sc):
-    """Dequantize an int8 weight stack with per-angle scales (host/XLA
-    path; the Pallas kernels do this in VMEM via their ``scales`` input).
-    ``sc`` None passes W through — the shared no-op for f32/bf16 packs."""
+    """Dequantize an int8 weight stack with per-angle scales. ``sc`` None
+    passes W through — the shared no-op for f32/bf16 packs."""
     if sc is None:
         return W
     return W.astype(jnp.float32) * sc[:, None, None, None]
@@ -378,12 +346,12 @@ def dequant_slab(W, sc):
 
 def apply_group_xla(nx, n_groups, X, W, S, P, transpose, y_rows=None,
                     wrap=False):
-    """All angles of one drive group (XLA oracle / CPU fallback path).
+    """All angles of one drive group.
 
     X: (n, n) image (drive-major). forward: returns (na_g, p_pad);
     adjoint: consumes y_rows (na_g, p) and returns the image contribution.
 
-    wrap=True consumes mod-n P tables (the Pallas kernel's convention):
+    wrap=True consumes mod-n P tables (the bucketed and sharded packs):
     indices wrap cyclically and NO validity mask is applied — exact,
     because packed weights are zero wherever the true column is out of
     range (see _pack_angle). wrap=False consumes raw (possibly negative)

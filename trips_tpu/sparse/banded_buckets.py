@@ -1,32 +1,21 @@
-"""Ta-bucketed banded projector (round-4 perf finding).
+"""Ta-bucketed banded projector.
 
 The flat ``BandedProjector`` stacks every drive group at the group-wide
 T = max(T_a), but per-angle tap widths vary ~2x (mean 8.2 vs max 15 on
-the tomo256x60 fan geometry) — 40%+ of the streamed slab is structural
+the tomo256x60 fan geometry) — 40%+ of the stored slab is structural
 zero padding. This variant splits each drive group's angles into
-``n_buckets`` Ta-sorted buckets, each stacked at its own T, and runs one
-kernel call per bucket. Zero added compute, 27-45% less stream; measured
-+10% on the f32 exact-matrix A^T A path (bf16 is compute-floor-bound and
-gains ~2%; see ROADMAP round-4 findings).
+``n_buckets`` Ta-sorted buckets, each stacked at its own T, and applies
+each bucket separately: no added compute, 27-45% fewer stored bytes.
 
-Same exact matrix as the flat pack (``to_scipy`` bit-identical entries);
-the fused ``normal_matvec`` sums one ``_ata_call`` per bucket.
+Same exact matrix as the flat pack (``to_scipy`` bit-identical entries).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.linop import LinearOperator, register_op
 from .banded import _pack_groups, _stack_packs, apply_group_xla
-
-
-def _use_pallas():
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        return False
 
 
 class BucketedBandedProjector(LinearOperator):
@@ -37,7 +26,7 @@ class BucketedBandedProjector(LinearOperator):
     """
 
     def __init__(self, stacks, aidxs, is_cols, shape, nx, p, n_groups,
-                 nnz, n_pad, ap=1):
+                 nnz, n_pad):
         self.stacks = tuple(tuple(s) for s in stacks)
         self.aidxs = tuple(tuple(int(a) for a in ai) for ai in aidxs)
         self.is_cols = tuple(bool(f) for f in is_cols)
@@ -47,24 +36,17 @@ class BucketedBandedProjector(LinearOperator):
         self.det_count = p
         self.n_groups = n_groups
         self.nnz = nnz
-        self.ap = ap
 
     @classmethod
     def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
-                       dtype=None, lane_pad=128, n_buckets=4, ap=1):
-        # n_buckets=4 is the measured optimum on the tomo256x60 fan
-        # geometry (r4 sweep: bf16 A^T A 10.03/10.61/10.50/10.59 at
-        # nb=3/4/6/8; f32 4.66/4.81/5.01 at nb=2/3/4).
-        # dtype "int8": per-angle absmax/127 scales, dequantized in VMEM
-        # by the kernel (quantized class; halves the weight stream vs
-        # bf16). ap: angles per Pallas grid step (buckets padded with
-        # zero-weight angles to a multiple; out-of-range scatter ids).
+                       dtype=None, lane_pad=128, n_buckets=4):
+        # dtype "int8": per-angle absmax/127 scales, dequantized at apply
+        # time (quantized class; half the weight bytes of bf16).
         int8 = dtype in ("int8", jnp.int8, np.int8)
         packs, idx, angles, p, n_pad = _pack_groups(A, nx, views, angles,
                                                     n_groups)
         p_pad = -(-p // lane_pad) * lane_pad
         out_dtype = np.float32 if (dtype is None or int8) else dtype
-        na_tot = A.shape[0] // p
         stacks, aidxs, is_cols = [], [], []
         for dr in (True, False):
             group, ids = packs[dr], idx[dr]
@@ -79,12 +61,6 @@ class BucketedBandedProjector(LinearOperator):
                 W, S, P = _stack_packs(sub, n_pad, p, p_pad, n_groups,
                                        out_dtype)
                 ai = [ids[k] for k in part]
-                if len(ai) % ap:
-                    padn = ap - len(ai) % ap
-                    W = np.pad(W, ((0, padn),) + ((0, 0),) * 3)
-                    S = np.pad(S, ((0, padn), (0, 0)))
-                    P = np.pad(P, ((0, padn), (0, 0), (0, 0)))
-                    ai = ai + [na_tot] * padn  # dropped by scatter/fill
                 if int8:
                     sc = np.maximum(
                         np.abs(W).max(axis=(1, 2, 3)), 1e-30) / 127.0
@@ -99,7 +75,7 @@ class BucketedBandedProjector(LinearOperator):
                 aidxs.append(ai)
                 is_cols.append(not dr)
         return cls(stacks, aidxs, is_cols, A.shape, nx, p, n_groups,
-                   A.nnz, n_pad, ap=ap)
+                   A.nnz, n_pad)
 
     @property
     def stored_bytes(self):
@@ -136,8 +112,6 @@ class BucketedBandedProjector(LinearOperator):
                     :, None, None, None]
             W, S, P = map(np.asarray, (W, S, P))
             for k, a in enumerate(aidx):
-                if a >= self.shape[0] // self.det_count:
-                    continue  # zero-weight ap padding
                 tt, ii, dd = np.nonzero(W[k])
                 cc = np.mod(S[k][ii] + P[k][ii // gsize, dd] + tt,
                             self.n_pad)
@@ -170,15 +144,9 @@ class BucketedBandedProjector(LinearOperator):
                                     self.is_cols):
             W, S, P, sc = self._parts(stack)
             Xg = X.T if isc else X
-            if _use_pallas():
-                from .pallas_banded_kernel import _fwd_call
-
-                yg = _fwd_call(Xg, W, S, P, self.n_groups, scales=sc,
-                               ap=self.ap)
-            else:
-                yg = apply_group_xla(npd, self.n_groups, Xg,
-                                     self._dequant(W, sc), S, P,
-                                     False, wrap=True)
+            yg = apply_group_xla(npd, self.n_groups, Xg,
+                                 self._dequant(W, sc), S, P, False,
+                                 wrap=True)
             y = y.at[jnp.asarray(aidx)].set(yg[:, :p], mode="drop")
         return y.reshape(-1).astype(x.dtype)
 
@@ -193,20 +161,15 @@ class BucketedBandedProjector(LinearOperator):
             Yg = jnp.take(Y, jnp.asarray(aidx), axis=0, mode="fill",
                           fill_value=0.0)
             Yg = jnp.pad(Yg, ((0, 0), (0, p_pad - p)))
-            if _use_pallas():
-                from .pallas_banded_kernel import _adj_call
-
-                c = _adj_call(Yg, W, S, P, self.n_groups, scales=sc,
-                              ap=self.ap)
-            else:
-                c = apply_group_xla(npd, self.n_groups, None,
-                                    self._dequant(W, sc), S, P,
-                                    True, y_rows=Yg, wrap=True)
+            c = apply_group_xla(npd, self.n_groups, None,
+                                self._dequant(W, sc), S, P, True,
+                                y_rows=Yg, wrap=True)
             img = img + (c.T if isc else c)
         return img[:n, :n].reshape(-1).astype(yv.dtype)
 
     def normal_matvec(self, x):
-        """Fused A^T A: one single-stream ``_ata_call`` per bucket."""
+        """x -> A^T A x, bucket by bucket (each bucket's dequantized
+        weights feed its forward and adjoint)."""
         n, npd = self.nx, self.n_pad
         X = self._embed(x)
         img = jnp.zeros((npd, npd), jnp.float32)
@@ -214,17 +177,11 @@ class BucketedBandedProjector(LinearOperator):
                                     self.is_cols):
             W, S, P, sc = self._parts(stack)
             Xg = X.T if isc else X
-            if _use_pallas():
-                from .pallas_banded_kernel import _ata_call
-
-                c = _ata_call(Xg, W, S, P, self.n_groups, scales=sc,
-                              ap=self.ap)
-            else:
-                Wf = self._dequant(W, sc)
-                yg = apply_group_xla(npd, self.n_groups, Xg, Wf, S, P,
-                                     False, wrap=True)
-                c = apply_group_xla(npd, self.n_groups, None, Wf, S, P,
-                                    True, y_rows=yg, wrap=True)
+            Wf = self._dequant(W, sc)
+            yg = apply_group_xla(npd, self.n_groups, Xg, Wf, S, P,
+                                 False, wrap=True)
+            c = apply_group_xla(npd, self.n_groups, None, Wf, S, P,
+                                True, y_rows=yg, wrap=True)
             img = img + (c.T if isc else c)
         return img[:n, :n].reshape(-1).astype(x.dtype)
 
@@ -233,5 +190,5 @@ register_op(
     BucketedBandedProjector,
     ["stacks"],
     ["aidxs", "is_cols", "shape", "nx", "det_count", "n_groups", "nnz",
-     "n_pad", "ap"],
+     "n_pad"],
 )

@@ -1,15 +1,14 @@
-"""Block-sparse (BSR) operator with MXU-sized dense blocks.
+"""Block-sparse (BSR) operator with small dense blocks.
 
-The TPU answer to unstructured sparsity: instead of scalar gathers (which the
-TPU vector unit hates), the matrix is tiled into ``br x bc`` dense blocks
-(bc = 128 lanes; br = 8..128 sublanes — tomography projectors pack much
-denser with short-row blocks) and only nonzero blocks are stored. Every
-apply is a stream of small dense contractions riding the MXU, and the nnz/s
-ceiling is HBM bandwidth on the block stream.
+Instead of scalar gathers, the matrix is tiled into ``br x bc`` dense blocks
+(default 16 x 128 — tomography projectors pack much denser with short-row
+blocks) and only nonzero blocks are stored. Every apply is a stream of small
+dense contractions, and the nnz/s ceiling is memory bandwidth on the block
+stream.
 
 The adjoint apply reuses the *forward* block stream with a transposed
-per-block contraction, scatter-accumulated into the output (which fits VMEM
-whole): no materialized transpose partition is needed on a single chip. In
+per-block contraction, scatter-accumulated into the output: no
+materialized transpose partition is needed on a single device. In
 the sharded setting each chip still contracts its local row-partition and
 partial sums are psum'd — the BASELINE "transpose partition" collapses to
 the same stream.
@@ -45,7 +44,7 @@ def _build_bsr(A, br, bc=None):
     """scipy sparse -> (blocks, brow, bcol, block_rowptr, mb, nbk) numpy.
 
     Vectorized direct construction (scipy's ``tobsr`` expands through COO
-    and is ~100x slower at MXU-sized blocks).
+    and is ~100x slower at these block sizes).
     """
     bc = bc if bc is not None else br
     coo = A.tocoo()
@@ -77,12 +76,7 @@ class BsrOperator(LinearOperator):
     ``_einsum_blocks``, ~2^-8 relative) — the same ~8-bit mantissa budget as
     bf16, absolute rather than relative.
 
-    The apply is the XLA einsum + segment-sum form. A per-block Pallas
-    kernel was built and retired (VERDICT r2 item 8): per-block dispatch
-    overhead capped it at ~0.10 Gnnz/s vs the XLA apply's 2.15-2.35 on the
-    same stored stream (driver-recorded, tomo256x60), and the shear-packed
-    banded kernel (``pallas_banded_kernel``) owns the stored-matrix fast
-    path outright.
+    The apply is the XLA einsum + segment-sum form.
     """
 
     def __init__(self, blocks, brow, bcol, rowptr, shape, block_shape, nnz,
@@ -132,7 +126,7 @@ class BsrOperator(LinearOperator):
         accumulates in f32 and the operator behaves as an f32 linear map.
         Without this override the generic pytree-leaf rule would report int8,
         and ``todense()`` would build an int8 identity / cast the result back
-        to int8 — silently zeroing the matrix (ADVICE r1, medium).
+        to int8 — silently zeroing the matrix.
         """
         if self.quant_scale is not None:
             return jnp.dtype(jnp.float32)
@@ -171,7 +165,6 @@ class BsrOperator(LinearOperator):
                           preferred_element_type=acc,
                           precision=_block_precision(blocks.dtype))
 
-    # -- XLA applies (CPU backends / fallback) ---------------------------
     def _apply(self, x, transpose):
         br, bc = self.block_shape
         m_out = self.shape[1] if transpose else self.shape[0]
@@ -221,12 +214,6 @@ class BsrOperator(LinearOperator):
         return self._apply(x, transpose=False)
 
     def rmatvec(self, y):
-        return self._apply(y, transpose=True)
-
-    def matvec_xla(self, x):
-        return self._apply(x, transpose=False)
-
-    def rmatvec_xla(self, y):
         return self._apply(y, transpose=True)
 
     def matmat(self, X):

@@ -1,4 +1,4 @@
-"""Frame-varying dynamic CT on the champion banded format.
+"""Frame-varying dynamic CT on the banded format.
 
 ``BatchedBlockDiagOperator`` covers the shared-geometry dynamic datasets
 (Emoji / CrossPhantom / STEMPO-real reuse one per-frame operator,
@@ -7,8 +7,8 @@ instead rotates the angle set every frame
 (``trips/utilities/io.py:391-420``), so every frame has its own projector.
 ``DynamicBandedOperator`` packs each frame's matrix into the shear-banded
 format, pads all frames to common (na, T) shapes per drive group, and runs
-the per-frame applies as ONE vmapped kernel call over the frame axis —
-block-diagonal in time with zero gathers on the critical path.
+the per-frame applies as ONE vmapped apply over the frame axis —
+block-diagonal in time.
 
 Padding is exact: padded angles carry all-zero weight slabs (zero
 contribution in both directions) and their scatter indices point one past
@@ -25,14 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.linop import LinearOperator, register_op
-from .banded import BandedProjector, apply_group_xla
-
-
-def _use_pallas():
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        return False
+from .banded import apply_group_xla
 
 
 class DynamicBandedOperator(LinearOperator):
@@ -156,27 +149,15 @@ class DynamicBandedOperator(LinearOperator):
         return dequant_slab(W, sc)
 
     def _fwd_frame(self, W, S, Pm, X, sc=None):
-        if _use_pallas():
-            from .pallas_banded_kernel import _fwd_call
-
-            return _fwd_call(X, W, S, Pm, self.n_groups, scales=sc)
         return apply_group_xla(self.n_pad, self.n_groups, X,
                                self._deq(W, sc), S, Pm, False, wrap=True)
 
     def _adj_frame(self, W, S, Pm, Yg, sc=None):
-        if _use_pallas():
-            from .pallas_banded_kernel import _adj_call
-
-            return _adj_call(Yg, W, S, Pm, self.n_groups, scales=sc)
         return apply_group_xla(self.n_pad, self.n_groups, None,
                                self._deq(W, sc), S, Pm, True, y_rows=Yg,
                                wrap=True)
 
     def _ata_frame(self, W, S, Pm, X, sc=None):
-        if _use_pallas():
-            from .pallas_banded_kernel import _ata_call
-
-            return _ata_call(X, W, S, Pm, self.n_groups, scales=sc)
         Wf = self._deq(W, sc)
         y = apply_group_xla(self.n_pad, self.n_groups, X, Wf, S, Pm,
                             False, wrap=True)
@@ -230,8 +211,7 @@ class DynamicBandedOperator(LinearOperator):
         return img.reshape(-1).astype(yv.dtype)
 
     def normal_matvec(self, x):
-        """Per-frame fused A^T A (single weight stream) vmapped over
-        frames — the champion single-chip economy, frame-batched."""
+        """Per-frame A^T A vmapped over frames."""
         n = self.nx
         X = self._embed_frames(
             x.reshape(self.nt, n, n).astype(jnp.float32))
@@ -256,14 +236,12 @@ register_op(
 
 
 class BucketedDynamicBandedOperator(DynamicBandedOperator):
-    """Ta-bucketed dynamic banded operator (r4 champion trick on the
-    flagship dynamic path): within each drive group, every frame's angle
-    entries are sorted by their true tap width and split into
-    ``n_buckets`` equal-count buckets, each stacked at its own T — the
-    same zero-compute stream cut that made ``BucketedBandedProjector``
-    the static champion (bench r4: bf16 bucketed fused A^T A 10.28 Gnnz/s
-    vs 8.46 flat). Same exact per-frame matrices; the parent's vmapped
-    applies run unchanged over the per-bucket groups."""
+    """Ta-bucketed dynamic banded operator: within each drive group,
+    every frame's angle entries are sorted by their true tap width and
+    split into ``n_buckets`` equal-count buckets, each stacked at its own
+    T — the same stored-byte cut as ``BucketedBandedProjector``. Same
+    exact per-frame matrices; the parent's vmapped applies run unchanged
+    over the per-bucket groups."""
 
     def __init__(self, stacks, is_cols, shape, nx, p, views, n_groups,
                  nnz, nt, n_pad):
@@ -294,11 +272,8 @@ class BucketedDynamicBandedOperator(DynamicBandedOperator):
     @classmethod
     def from_frames(cls, AA, nx, angles_list, n_groups=32, dtype=None,
                     lane_pad=128, n_buckets=3):
-        # n_buckets=3 is the measured optimum at STEMPO-scale frames
-        # (r4: plain 3.48 -> nb2 4.50 -> nb3 5.05 Gnnz/s).
         # dtype "int8": per-(frame, angle) absmax/127 scales, dequantized
-        # in VMEM by the kernel (r5; static counterpart measured +31%
-        # over the r4 champion)
+        # at apply time
         from .banded import _pack_groups
         from ..native import scatter_fill
 

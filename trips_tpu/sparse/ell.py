@@ -1,6 +1,6 @@
 """Padded ELL sparse operator.
 
-TPU-native replacement for the reference's ``scipy.sparse`` CSR/CSC storage
+Device replacement for the reference's ``scipy.sparse`` CSR/CSC storage
 (e.g. the dynamic-CT matrices loaded at ``trips/utilities/io.py:132-134``).
 Rows are padded to a common nonzeros-per-row width so every array is
 statically shaped and XLA-friendly; the transpose table is materialized at
