@@ -133,6 +133,28 @@ def test_device_sparse_operator_one_rule(monkeypatch, prefer):
                                A @ x, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["int8", jnp.bfloat16])
+def test_device_sparse_operator_quantized_needs_a_format(dtype):
+    """A quantized dtype is never cast into ELL (int8 would truncate the
+    weights to 0/1): the default refuses it, and ``prefer='bsr'`` stores
+    it as quantized BSR blocks that stay within the class budget."""
+    from trips_tpu.problems import device_sparse_operator
+    from trips_tpu.sparse import BsrOperator, EllOperator
+
+    A, angles = _tomo()
+    with pytest.raises(ValueError, match="ELL"):
+        device_sparse_operator(A, dtype=dtype)
+    with pytest.raises(ValueError, match="ELL"):
+        EllOperator.from_scipy(A, dtype=dtype)
+    op = device_sparse_operator(A, dtype=dtype, prefer="bsr")
+    assert type(op) is BsrOperator
+    assert op.blocks.dtype == jnp.dtype(dtype)
+    x = np.random.default_rng(0).standard_normal(A.shape[1]).astype(
+        np.float32)
+    got = np.asarray(op.matvec(jnp.asarray(x)))
+    assert np.linalg.norm(got - A @ x) / np.linalg.norm(A @ x) < 1e-2
+
+
 def _native_in(monkeypatch, where):
     import trips_tpu.native as nat
 

@@ -173,10 +173,7 @@ def test_int8_todense_not_zero(rng):
     assert op.stored_bytes > op.blocks.size
 
 
-# The per-block Pallas BSR kernel was retired: the XLA
-# einsum + segment-sum apply is the BSR path (driver-recorded 2.15-2.35
-# Gnnz/s vs the kernel's 0.10 on tomo256x60); the banded Pallas kernel
-# owns the stored-matrix fast path.
+# The XLA einsum + segment-sum apply is the BSR path.
 
 
 def test_dynamic_bucketed_int8(rng):

@@ -172,8 +172,13 @@ class OnTheFlyFanProjector(LinearOperator):
     band segment length. All elementwise — no gathers, no stored matrix,
     HBM traffic is just the image and sinogram.
 
-    Matches the Siddon CSR matrix to ~1e-6 (f32) / 1e-12 (f64); rows are
-    angle-major like the matrix builder.
+    Matches the Siddon CSR matrix to ~1e-11 in float64. In float32 the ray
+    geometry itself rounds (band crossings are differences of coordinates
+    ~3*nx from the origin), which puts an apply ~1e-4 from the matrix, and
+    a ray within that rounding of a pixel boundary (a view at pi/2 with an
+    odd detector count) may land in the neighbouring pixel: a class of its
+    own, not the exact stored matrix. Rows are angle-major like the
+    matrix builder.
     """
 
     def __init__(self, nx, angles=None, views=None, det_count=None,
@@ -247,7 +252,10 @@ class OnTheFlyFanProjector(LinearOperator):
             0.0,
         )
         frac = ov / jnp.maximum(span, eps)[:, :, None]
-        inside = (jnp.abs(lo[:, :, None] - perp_c[None, None, :]) <= 0.5)
+        # half-open pixel interval, as the matrix builder's floor(): a ray
+        # on a pixel boundary belongs to the pixel above it, not to both
+        rel_lo = lo[:, :, None] - perp_c[None, None, :]
+        inside = (rel_lo >= -0.5) & (rel_lo < 0.5)
         w = jnp.where(span[:, :, None] < eps,
                       jnp.where(inside, seglen[:, :, None], 0.0),
                       frac * seglen[:, :, None])

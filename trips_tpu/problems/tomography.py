@@ -32,28 +32,29 @@ def device_sparse_operator(A_csr, prefer_bsr=None, dtype=np.float32,
                            nx=None, angles=None, prefer=None):
     """Wrap a host CSR matrix as a device operator.
 
-    One rule on every platform. ``prefer`` forces 'banded' | 'bsr' |
-    'ell'. Otherwise exact-class matrices (``dtype`` float32/float64) use
-    ``DEFAULT_FORMAT``, and the quantized classes (``jnp.bfloat16`` or
-    ``"int8"``, <1%-of-norm recon deviation, pinned by tests) use the
-    Ta-bucketed banded pack when fan/parallel geometry (``nx`` +
-    ``angles``) is given. A banded pack whose preconditions do not hold
-    falls back to ``DEFAULT_FORMAT``."""
+    One rule on every platform: ``prefer`` ('banded' | 'bsr' | 'ell')
+    forces a format, otherwise ``DEFAULT_FORMAT``. Exact-class ``dtype``
+    (float32/float64) stores the matrix as it is. The quantized classes
+    (``jnp.bfloat16`` or ``"int8"``, <1%-of-norm recon deviation, pinned
+    by tests) are a storage of the BSR blocks or of the banded pack and
+    must be asked for with ``prefer``; ELL stores exact values only and
+    refuses them. The banded pack needs fan/parallel geometry (``nx`` +
+    ``angles``); when its preconditions do not hold the matrix goes to
+    ``DEFAULT_FORMAT``."""
     quantized = np.dtype(dtype) not in (np.float32, np.float64)
     if prefer is None and prefer_bsr is not None:  # legacy flag
         prefer = "bsr" if prefer_bsr else "ell"
-    geometry = (nx is not None and angles is not None
-                and A_csr.shape[1] == nx * nx)
-    if prefer is None:
-        prefer = "banded" if quantized and geometry else DEFAULT_FORMAT
+    prefer = prefer or DEFAULT_FORMAT
     if prefer == "banded":
         from ..sparse import BucketedBandedProjector
 
-        n_pad = -(-nx // 128) * 128
-        for ng in (32, 16, 8, 4, 2, 1):
-            if n_pad % ng == 0:
-                break
         try:
+            if nx is None or angles is None or A_csr.shape[1] != nx * nx:
+                raise ValueError("banded pack needs square-grid geometry")
+            n_pad = -(-nx // 128) * 128
+            for ng in (32, 16, 8, 4, 2, 1):
+                if n_pad % ng == 0:
+                    break
             return BucketedBandedProjector.from_scipy_fan(
                 A_csr, nx, views=None, angles=np.asarray(angles),
                 n_groups=ng,
@@ -63,6 +64,9 @@ def device_sparse_operator(A_csr, prefer_bsr=None, dtype=np.float32,
         except (ValueError, AssertionError):  # pack preconditions
             prefer = DEFAULT_FORMAT
     if prefer == "bsr":
+        if quantized:
+            return BsrOperator.from_scipy(A_csr, dtype=np.float32,
+                                          block_dtype=dtype)
         return BsrOperator.from_scipy(A_csr, dtype=dtype)
     return EllOperator.from_scipy(A_csr, dtype=dtype)
 

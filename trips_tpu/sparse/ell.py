@@ -52,6 +52,12 @@ class EllOperator(LinearOperator):
     def from_scipy(cls, A, dtype=None):
         from scipy import sparse as sp
 
+        if dtype is not None and not np.issubdtype(np.dtype(dtype),
+                                                   np.floating):
+            # a cast to an integer type truncates the weights
+            raise ValueError(f"ELL stores exact float values; {dtype} is "
+                             "a quantized storage of the BSR or banded "
+                             "formats")
         A = sp.csr_matrix(A)
         if dtype is not None:
             A = A.astype(dtype)
